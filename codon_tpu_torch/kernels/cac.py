@@ -1,0 +1,253 @@
+"""The CAC-stage kernels: CUDA for Hopper, each beside its plain PyTorch version.
+
+Counterparts of the three Pallas TPU kernels of `codon_tpu.kernels.cac`:
+
+  cac_stats       one pass over both towers -> per-image channel sums and
+                  maxes of Fcat = [color | depth] (for the channel-gate MLP)
+                  and the channel-pooled max / mean maps (for the spatial
+                  gate)
+  spatial_logits  the k x k (k = 5) SAME stencil, 2 -> 1, on the pooled maps
+  cac_apply       ad = channel gate x sigmoid(logits); both towers gated and
+                  the long skip added: 4 reads + 2 writes in one pass
+
+The CUDA sources are in `csrc/cac.cu`. Each wrapper takes the plain version
+when its tensors lie on the CPU, and on a CUDA tensor launches the kernel or
+raises; it never falls back. Each wrapper counts its kernel launches in a
+plain integer attribute, `<wrapper>.launches`.
+
+Layout: contiguous NHWC, C innermost; activations float32, bfloat16 or
+float16; sums, maxes and the gate in float32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from codon_tpu_torch.kernels import _build
+
+NEG = -3.0e38               # the TPU kernel's "minus infinity" for maxes
+STATS_TILE_ROWS = 4         # rows per block in cac_stats' first pass
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the specification, the CPU path, and the card's reference
+# ---------------------------------------------------------------------------
+
+def cac_stats_plain(out, out_c, mask=None):
+    """-> (ch_sum (N,1,2C) f32, ch_max (N,1,2C) f32, cmax (N,H,W), cmean).
+
+    Fcat is color first. The sums rely on padding already being zero
+    (masked convs upstream); the max leaves out mask == 0 pixels. The pooled
+    maps are of the raw values, in the activation dtype.
+    """
+    c = out.shape[-1]
+    x, y = out.float(), out_c.float()
+    ch_sum = torch.cat([y.sum((1, 2)), x.sum((1, 2))], -1)[:, None]
+    if mask is not None:
+        invalid = mask <= 0
+        x_m, y_m = x.masked_fill(invalid, NEG), y.masked_fill(invalid, NEG)
+    else:
+        x_m, y_m = x, y
+    ch_max = torch.cat([y_m.amax((1, 2)), x_m.amax((1, 2))], -1)[:, None]
+    cmax = torch.maximum(out.amax(-1), out_c.amax(-1))
+    cmean = ((x.sum(-1) + y.sum(-1)) / (2 * c)).to(out.dtype)
+    return ch_sum, ch_max, cmax, cmean
+
+
+def spatial_logits_plain(cmax, cmean, sp_w):
+    """sp_w: (k, k, 2, 1), channel 0 = max, 1 = mean. -> (N,H,W) logits in
+    the maps' dtype; taps summed in float32 in the TPU kernel's order."""
+    n, h, w = cmax.shape
+    k = sp_w.shape[0]
+    r = (k - 1) // 2
+    a = F.pad(cmax.float(), (r, r, r, r))
+    b = F.pad(cmean.float(), (r, r, r, r))
+    wk = sp_w.float()
+    acc = torch.zeros((n, h, w), dtype=torch.float32, device=cmax.device)
+    for dy in range(k):
+        for dx in range(k):
+            acc = acc + (wk[dy, dx, 0, 0] * a[:, dy:dy + h, dx:dx + w] +
+                         wk[dy, dx, 1, 0] * b[:, dy:dy + h, dx:dx + w])
+    return acc.to(cmax.dtype)
+
+
+def cac_apply_plain(out, out_c, inputs, inputs_c, gate, sp_logits):
+    """gate (N,1,C) f32 post-sigmoid; sp_logits (N,H,W) pre-sigmoid.
+    ad is built in float32 and rounded once to the activation dtype; the
+    gating and the long skip run in the activation dtype."""
+    sp = torch.sigmoid(sp_logits.float())
+    ad = (sp[..., None] * gate[:, None]).to(out.dtype)
+    return out * ad + inputs, out_c * ad + inputs_c
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"CAC kernels take CPU or CUDA tensors, got "
+                         f"{t.device}")
+    return False
+
+
+def _need(cond: bool, what: str, *args) -> None:
+    """Raise ValueError(what.format(*args)) unless `cond`; the message is
+    built only on failure (the wrappers run on every stage)."""
+    if not cond:
+        raise ValueError(what.format(*args))
+
+
+def _check_towers(*ts):
+    ref = ts[0]
+    _need(ref.dim() == 4, "expected NHWC activations, got {}",
+          tuple(ref.shape))
+    _need(ref.dtype in _DTYPE_CODES, "unsupported dtype {}", ref.dtype)
+    for t in ts:
+        _need(t.shape == ref.shape and t.dtype == ref.dtype
+              and t.device == ref.device,
+              "towers differ in shape, dtype or device")
+        _need(t.is_contiguous(), "activations must be contiguous NHWC")
+        _need(t.data_ptr() % 16 == 0,
+              "activations must start on a 16-byte boundary")
+    row = ref.shape[-1] * ref.element_size()
+    vpp = row // 16
+    _need(row % 16 == 0 and 1 <= vpp <= 32 and vpp & (vpp - 1) == 0,
+          "C={} of {}: a pixel's channels must be a power-of-two count of "
+          "16-byte vectors, at most 32", ref.shape[-1], ref.dtype)
+
+
+def _check_plane(t, shape, dtype, device, what):
+    _need(t.shape == shape and t.dtype == dtype and t.device == device
+          and t.is_contiguous(),
+          "{}: expected contiguous {} {} on {}", what, tuple(shape), dtype,
+          device)
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def cac_stats(out, out_c, mask=None):
+    """Kernel-backed `cac_stats_plain`. mask: optional (N,H,W,1), same dtype."""
+    if _on_cpu(out):
+        return cac_stats_plain(out, out_c, mask)
+    _check_towers(out, out_c)
+    n, h, w, c = out.shape
+    if mask is not None:
+        _check_plane(mask, (n, h, w, 1), out.dtype, out.device, "mask")
+    lib = _build.load()
+    tiles = -(-h // STATS_TILE_ROWS)
+    dev = out.device
+    f32 = torch.float32
+    part = torch.empty((n, tiles, 2, 2 * c), dtype=f32, device=dev)
+    ch_sum = torch.empty((n, 1, 2 * c), dtype=f32, device=dev)
+    ch_max = torch.empty((n, 1, 2 * c), dtype=f32, device=dev)
+    cmax = torch.empty((n, h, w), dtype=out.dtype, device=dev)
+    cmean = torch.empty((n, h, w), dtype=out.dtype, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.codon_cac_stats(
+            _DTYPE_CODES[out.dtype], out.data_ptr(), out_c.data_ptr(),
+            None if mask is None else mask.data_ptr(), part.data_ptr(),
+            ch_sum.data_ptr(), ch_max.data_ptr(), cmax.data_ptr(),
+            cmean.data_ptr(), n, h, w, c, STATS_TILE_ROWS, _stream(out))
+    _build.check(rc, "cac_stats")
+    cac_stats.launches += 1
+    return ch_sum, ch_max, cmax, cmean
+
+
+def spatial_logits(cmax, cmean, sp_w):
+    """Kernel-backed `spatial_logits_plain`. sp_w: (5, 5, 2, 1) on the card,
+    the 5x5 spatial gate of every variant; any odd k on the CPU."""
+    if _on_cpu(cmax):
+        return spatial_logits_plain(cmax, cmean, sp_w)
+    _need(cmax.dim() == 3 and cmax.dtype in _DTYPE_CODES,
+          "cmax: expected (N,H,W) activations, got {} {}",
+          tuple(cmax.shape), cmax.dtype)
+    _check_plane(cmax, cmax.shape, cmax.dtype, cmax.device, "cmax")
+    _check_plane(cmean, cmax.shape, cmax.dtype, cmax.device, "cmean")
+    k = sp_w.shape[0]
+    _need(sp_w.shape == (5, 5, 2, 1),
+          "sp_w: the kernel takes a 5x5 gate, (5, 5, 2, 1), got {}",
+          tuple(sp_w.shape))
+    wk = sp_w.to(device=cmax.device, dtype=torch.float32).contiguous()
+    n, h, w = cmax.shape
+    lib = _build.load()
+    logits = torch.empty_like(cmax)
+    with torch.cuda.device(cmax.device):
+        rc = lib.codon_spatial_logits(
+            _DTYPE_CODES[cmax.dtype], cmax.data_ptr(), cmean.data_ptr(),
+            wk.data_ptr(), logits.data_ptr(), n, h, w, k, _stream(cmax))
+    _build.check(rc, "spatial_logits")
+    spatial_logits.launches += 1
+    return logits
+
+
+def cac_apply(out, out_c, inputs, inputs_c, gate, sp_logits):
+    """Kernel-backed `cac_apply_plain` -> (new_out, new_out_c)."""
+    if _on_cpu(out):
+        return cac_apply_plain(out, out_c, inputs, inputs_c, gate, sp_logits)
+    _check_towers(out, out_c, inputs, inputs_c)
+    n, h, w, c = out.shape
+    _check_plane(gate, (n, 1, c), torch.float32, out.device, "gate")
+    _check_plane(sp_logits, out.shape[:3], out.dtype, out.device,
+                 "sp_logits")
+    lib = _build.load()
+    new_out = torch.empty_like(out)
+    new_out_c = torch.empty_like(out_c)
+    with torch.cuda.device(out.device):
+        rc = lib.codon_cac_apply(
+            _DTYPE_CODES[out.dtype], out.data_ptr(), out_c.data_ptr(),
+            inputs.data_ptr(), inputs_c.data_ptr(), gate.data_ptr(),
+            sp_logits.data_ptr(), new_out.data_ptr(), new_out_c.data_ptr(),
+            n, h, w, c, _stream(out))
+    _build.check(rc, "cac_apply")
+    cac_apply.launches += 1
+    return new_out, new_out_c
+
+
+KERNELS = (cac_stats, spatial_logits, cac_apply)
+for _k in KERNELS:
+    _k.launches = 0
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launches() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# the composed stage
+# ---------------------------------------------------------------------------
+
+def cac_stage(out, out_c, inputs, inputs_c, w1, b1, w2, b2, sp_w, mask=None):
+    """One CAC stage through the three kernels -> (new_out, new_out_c).
+
+    As `codon_tpu.kernels.cac.cac_stage_pallas`: stats; avg = sum / (valid
+    pixel count, or H*W); the shared MLP 128 -> 8 -> 64 on avg and max,
+    summed before the sigmoid (float32, in PyTorch); logits; apply. With a
+    mask (N,H,W,1) the towers must already be zero on padding, as masked
+    convs leave them.
+    """
+    n, h, w, c = out.shape
+    ch_sum, ch_max, cmax, cmean = cac_stats(out, out_c, mask)
+    if mask is not None:
+        denom = mask.float().sum((1, 2, 3))[:, None, None]
+    else:
+        denom = float(h * w)
+    avg = ch_sum / denom
+
+    def mlp(v):
+        hid = torch.relu(v @ w1.float() + b1.float())
+        return hid @ w2.float() + b2.float()
+
+    gate = torch.sigmoid(mlp(avg) + mlp(ch_max)).contiguous()   # (N,1,C)
+    sp = spatial_logits(cmax, cmean, sp_w)
+    return cac_apply(out, out_c, inputs, inputs_c, gate, sp)
