@@ -8,8 +8,10 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
   2. builds the CUDA kernels from codon_tpu_torch/kernels/csrc with nvcc;
   3. holds each kernel against its plain PyTorch version on the card, in
      float32, bfloat16 and float16, at the main path's shape (batch 4,
-     384 x 480 padded, a mask marking 370 x 463 valid, C = 64) and at an odd
-     shape (2 x 37 x 29, one image half masked), and times the kernel, the
+     384 x 480 padded, a mask marking 370 x 463 valid, C = 64), at an odd
+     shape (2 x 37 x 29, one image half masked) and at the TTA8 path's two
+     shapes (16 x 384 x 480, and 16 x 480 x 384 transposed, the masks
+     flipped to each corner as the 4 flips place them), and times the kernel, the
      plain version and, where one exists, a single PyTorch call computing
      the same function, with CUDA events after a warmup;
   4. runs `python -m codon_tpu_torch.cli eval` in-process, in bfloat16 at
@@ -21,9 +23,30 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
   5. runs one float32 forward of the first batch through the kernels and
      through the plain PyTorch stage, and one small float32 forward on the
      card against the same forward on the CPU;
-  6. prints the card's line again, the kernels' JSON line, then the
-     contract line {"ok": true, "device": {...}} as the last line of its
-     output.
+  6. holds the three copy kernels of the HBM copy probe against the
+     identity, bitwise, at both of the probe's tiles, at its shape
+     (32, 370, 463, 64) bf16 and at (3, 37, 29, 64), each writing into the
+     middle of a sentinel-filled buffer whose sentinel must stay intact;
+  7. times each copy kernel at its first tile, its plain version and
+     x.clone() at the probe's shape;
+  8. runs the probe's sweep (`perf_copy_probe.main`), its RESULT lines
+     printed, with the copy kernels' launch counters set to 0 just before
+     and read just after, and prints the measured copy ceiling as a share
+     of the nominal 3.35 TB/s;
+  9. runs `cli eval --tta8 --device-metrics` (bf16, batch 4) on the same
+     scale dir with the CAC counters set to 0 just before and read just
+     after, holds the card's RMSE and SSIM against the host metrics on the
+     PNGs it wrote and against the same tensor metrics on the CPU, and
+     runs it again warm, with device and with host metrics, for the rates;
+ 10. runs float32 TTA8 of the first batch through the kernels and through
+     the plain stage;
+ 11. builds a 2-member `--tta` ensemble (x4_ship4 + x4_holdout2) through
+     the cli's own forward and holds it in float32 against the mean of
+     its members, then runs it as `cli eval` in bf16 with the CAC counters
+     set to 0 just before and read just after;
+ 12. prints the card's line again, the kernels' JSON line (six kernels),
+     then the contract line {"ok": true, "device": {...}} as the last line
+     of its output.
 
 Any failed check raises: the script then exits non-zero and prints no
 result. It also exits non-zero, printing nothing on stdout, without a CUDA
@@ -41,6 +64,8 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "checkpoints", "x4_ship4.npz")
+# the ensemble's second member: a holdout-trained checkpoint of variant codon
+CKPT2 = os.path.join(REPO, "checkpoints", "x4_holdout2.npz")
 
 # H100 SXM peaks (NVIDIA's data sheet), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -64,14 +89,60 @@ FWD_TOL = 1e-4
 # of tests/test_model_parity.py (cuDNN and the CPU sum in other orders)
 CPU_TOL = 5e-4
 
+# TTA8 eval on the card with --device-metrics: RMSE against the host's
+# on the written PNGs within 1e-3 (tests/test_metrics.py: float32 on the
+# card); SSIM within 0.03, the JAX package's documented bound for the
+# normalized-convolution border of padded images (tests/test_metrics.py);
+# the same tensor metrics on the CPU on the same bytes within 1e-5 (float32
+# on both sides, sums in another order)
+RMSE_HOST_TOL = 1e-3
+SSIM_HOST_TOL = 0.03
+METRIC_CPU_TOL = 1e-5
+
 DEVICE = "cuda"
 MAIN_SHAPE = (4, 384, 480, 64)
 MAIN_VALID = [(370, 463)] * 4
 ODD_SHAPE = (2, 37, 29, 64)
 ODD_VALID = [(37, 29), (19, 15)]
+
+
+def tta_valid(sizes):
+    """The valid region (h, w, flipped down, flipped right) of each image
+    of a batched TTA forward over a batch of the given sizes: the flips id,
+    V, H, HV of `models/tta.py`, each over the whole batch."""
+    return [(h, w, fv, fh) for fv, fh in ((0, 0), (1, 0), (0, 1), (1, 1))
+            for h, w in sizes]
+
+
+# where the TTA8 eval of the main path gives the CAC kernels their inputs:
+# a batch of 4 (the synthetic dir's second batch holds both scene sizes)
+# as the 4 flips at 384 x 480, then transposed at 480 x 384
+TTA_SIZES = [(370, 463)] * 2 + [(375, 450)] * 2
+TTA_SHAPE = (16, 384, 480, 64)
+TTA_VALID = tta_valid(TTA_SIZES)
+TTA_T_SHAPE = (16, 480, 384, 64)
+TTA_T_VALID = tta_valid([(w, h) for h, w in TTA_SIZES])
+STAGE_CASES = ((MAIN_SHAPE, MAIN_VALID), (ODD_SHAPE, ODD_VALID),
+               (TTA_SHAPE, TTA_VALID), (TTA_T_SHAPE, TTA_T_VALID))
+# the copy probe's shape (scripts/perf_pallas_probe.py), bf16, and a small
+# one whose last tile is ragged for every tile; (name, view, the two tiles
+# of the probe's sweep) for each kernel
+PROBE_SHAPE = (32, 370, 463, 64)
+RAGGED_COPY_SHAPE = (3, 37, 29, 64)
+COPY_KERNELS = (("copy4d", "4d", (64, 128)), ("copyflat", "flat", (64, 8)),
+                ("copy3d", "3d", (512, 64)))
+COPY_SENTINEL = -7.0        # the inputs lie in [0, 1)
+COPY_GUARD = 4096           # sentinel elements before and after the output
 # the synthetic scale dir: Middlebury's 463 x 370 and a second size that
 # pads to the same 480 x 384
 SCENES = [(370, 463)] * 6 + [(375, 450)] * 2
+# file:line of each kernel's pallas_call
+REPLACES = {"cac_stats": "codon_tpu/kernels/cac.py:143",
+            "spatial_logits": "codon_tpu/kernels/cac.py:193",
+            "cac_apply": "codon_tpu/kernels/cac.py:239",
+            "copy4d": "scripts/perf_pallas_probe.py:65",
+            "copyflat": "scripts/perf_pallas_probe.py:75",
+            "copy3d": "scripts/perf_pallas_probe.py:85"}
 
 
 def say(msg: str) -> None:
@@ -115,13 +186,17 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
 # ---------------------------------------------------------------------------
 
 def make_stage_inputs(shape, valid, dtype, seed):
-    """Towers zero on padding, as masked convs leave them."""
+    """Towers zero on padding, as masked convs leave them. valid: per image
+    (h, w) at the top left, or (h, w, flipped down, flipped right)."""
     import torch
     n, h, w, c = shape
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     mask = torch.zeros((n, h, w, 1), device=DEVICE)
-    for i, (vh, vw) in enumerate(valid):
-        mask[i, :vh, :vw] = 1.0
+    for i, (vh, vw, *flip) in enumerate(valid):
+        fv, fh = flip or (0, 0)
+        rows = slice(h - vh, h) if fv else slice(0, vh)
+        cols = slice(w - vw, w) if fh else slice(0, vw)
+        mask[i, rows, cols] = 1.0
     towers = [torch.randn(shape, generator=g, device=DEVICE) * mask
               for _ in range(4)]
     gate = torch.rand((n, 1, c), generator=g, device=DEVICE)
@@ -144,13 +219,14 @@ def max_err(got, want, atol, rtol):
 
 
 def check_kernels(kc):
-    """Every kernel, dtype and shape: -> {name: [check, ...]}."""
+    """Every kernel and dtype at every shape a driven path gives it, masks
+    placed as that path places them: -> {name: [check, ...]}."""
     import torch
     checks = {k: [] for k in ("cac_stats", "spatial_logits", "cac_apply")}
     seed = 0
     for dname, (atol, rtol) in TOLS.items():
         dtype = getattr(torch, dname)
-        for shape, valid in ((MAIN_SHAPE, MAIN_VALID), (ODD_SHAPE, ODD_VALID)):
+        for shape, valid in STAGE_CASES:
             seed += 1
             (out, out_c, inp, inp_c), mask, gate, sp_w, logits = \
                 make_stage_inputs(shape, valid, dtype, seed)
@@ -272,14 +348,15 @@ def write_scale_dir(root: str, seed: int = 0):
     return len(SCENES)
 
 
-def eval_once(data: str, out: str, jpath: str, batch: int):
+def eval_once(data: str, out: str, jpath: str, batch: int, extra=(),
+              ckpt: str = CKPT):
     """One in-process `cli eval`, bf16 -> (summary, wall seconds)."""
     from codon_tpu_torch import cli
     t0 = time.time()
     rc = cli.main(["eval", "--scale", "4", "--data-dir", data,
-                   "--ckpt", CKPT, "--variant", "codon", "--batch",
+                   "--ckpt", ckpt, "--variant", "codon", "--batch",
                    str(batch), "--dtype", "bf16", "--out", out,
-                   "--json", jpath, "--device", DEVICE])
+                   "--json", jpath, "--device", DEVICE, *extra])
     wall = time.time() - t0
     need(rc == 0, f"cli eval returned {rc}")
     with open(jpath) as f:
@@ -361,6 +438,243 @@ def compare_paths(data: str):
     return d_paths, d_cpu
 
 
+# ---------------------------------------------------------------------------
+# phases 6-8: the copy kernels of the HBM copy probe
+# ---------------------------------------------------------------------------
+
+def check_copies(kcopy, probe):
+    """Every copy kernel at both of the probe's tiles, at the probe's shape
+    and at a small ragged one: the output, written into the middle of a
+    sentinel-filled buffer, equals the input bitwise, and the sentinel
+    around it is untouched. -> [check, ...]."""
+    import torch
+    rows = []
+    for shape in (PROBE_SHAPE, RAGGED_COPY_SHAPE):
+        g = torch.Generator(device=DEVICE).manual_seed(7)
+        x4 = torch.rand(shape, generator=g, device=DEVICE).to(torch.bfloat16)
+        buf = torch.empty(x4.numel() + 2 * COPY_GUARD, dtype=x4.dtype,
+                          device=DEVICE)
+        for name, kind, tiles in COPY_KERNELS:
+            x = probe.view(x4, kind)
+            fn = getattr(kcopy, name)
+            for tile in tiles:
+                buf.fill_(COPY_SENTINEL)
+                out = buf[COPY_GUARD:COPY_GUARD + x.numel()].view(x.shape)
+                fn(x, tile, out=out)
+                torch.cuda.synchronize()
+                same = torch.equal(out.view(torch.int16), x.view(torch.int16))
+                guard = bool((buf[:COPY_GUARD] == COPY_SENTINEL).all()) and \
+                    bool((buf[COPY_GUARD + x.numel():] ==
+                          COPY_SENTINEL).all())
+                rows.append({"name": name, "shape": list(x.shape),
+                             "tile": tile, "blocks": kcopy.plan(
+                                 kind, x.shape, tile).blocks,
+                             "max_abs_err": float((out.float() - x.float())
+                                                  .abs().max()),
+                             "ok": same and guard, "bitwise": same,
+                             "guard": guard})
+        del x4, buf
+    return rows
+
+
+def time_copies(kcopy, probe):
+    """Each copy kernel at its first tile of the sweep, at the probe's
+    shape: -> {name: timings}."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(8)
+    x4 = torch.rand(PROBE_SHAPE, generator=g, device=DEVICE).to(
+        torch.bfloat16)
+    nbytes = 2 * x4.numel() * x4.element_size()          # read + write
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {}
+    for name, kind, tiles in COPY_KERNELS:
+        x = probe.view(x4, kind)
+        fn = getattr(kcopy, name)
+        dst = torch.empty_like(x)
+        ms = time_ms(lambda: fn(x, tiles[0], out=dst))
+        out[name] = {
+            "tile": tiles[0], "ms": ms,
+            "plain_ms": time_ms(lambda: kcopy.copy_plain(x, dst)),
+            "library_ms": time_ms(lambda: x.clone()),
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "gb_per_s": nbytes / ms / 1e6}
+    return out
+
+
+def run_probe(kcopy, probe):
+    """The probe's sweep through its entry point, with the copy kernels'
+    counts set to 0 just before and read just after."""
+    kcopy.reset_launches()
+    rows = probe.main(["--device", DEVICE])
+    counts = kcopy.launches()
+    need(len(rows) == len(probe.SWEEP) and
+         all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in rows),
+         "the probe's sweep did not time every line")
+    for name, count in counts.items():
+        need(count > 0, f"{name} was not launched by the probe's sweep")
+    return rows, counts
+
+
+# ---------------------------------------------------------------------------
+# phases 9-11: TTA, on-device metrics and ensembles
+# ---------------------------------------------------------------------------
+
+def padded(a, hw):
+    """A 2-D uint8 image -> float32 (H, W) zero-padded to the batch shape
+    hw, and its mask."""
+    import numpy as np
+    h, w = a.shape
+    img = np.zeros(hw, np.float32)
+    img[:h, :w] = a
+    m = np.zeros(hw, np.float32)
+    m[:h, :w] = 1.0
+    return img, m
+
+
+def check_device_metrics(summary, data: str, out: str):
+    """The card's per-image RMSE and SSIM against (a) the host metrics on
+    the PNGs the eval wrote and (b) the same tensor metrics run on the CPU
+    on those bytes, padded and masked as the batch was. -> largest gaps."""
+    import torch
+    from codon_tpu_torch.data.io import imread_gray
+    from codon_tpu_torch.metrics.rmse import masked_rmse, masked_rmse_torch
+    from codon_tpu_torch.metrics.ssim import ssim_exact, ssim_exact_torch
+    gaps = {"rmse_host": 0.0, "ssim_host": 0.0, "rmse_cpu": 0.0,
+            "ssim_cpu": 0.0}
+    for row in summary["per_image"]:
+        img = imread_gray(os.path.join(out, row["name"] + ".png"))
+        lab = imread_gray(os.path.join(data, "input_label",
+                                       row["name"] + ".png"))
+        gaps["rmse_host"] = max(gaps["rmse_host"],
+                                abs(row["rmse"] - masked_rmse(lab, img)))
+        gaps["ssim_host"] = max(gaps["ssim_host"], abs(
+            row["ssim"] - ssim_exact(lab / 255, img / 255)))
+        o, m = padded(img, MAIN_SHAPE[1:3])
+        lb, _ = padded(lab, MAIN_SHAPE[1:3])
+        o, m, lb = (torch.from_numpy(t)[None] for t in (o, m, lb))
+        gaps["rmse_cpu"] = max(gaps["rmse_cpu"], abs(
+            row["rmse"] - float(masked_rmse_torch(lb, o, m)[0])))
+        gaps["ssim_cpu"] = max(gaps["ssim_cpu"], abs(
+            row["ssim"] - float(ssim_exact_torch(lb / 255.0, o / 255.0,
+                                                 mask=m)[0])))
+    need(gaps["rmse_host"] < RMSE_HOST_TOL,
+         f"card RMSE vs host RMSE on the PNGs: {gaps['rmse_host']}")
+    need(gaps["ssim_host"] < SSIM_HOST_TOL,
+         f"card SSIM vs host SSIM on the PNGs: {gaps['ssim_host']}")
+    need(gaps["rmse_cpu"] <= METRIC_CPU_TOL and
+         gaps["ssim_cpu"] <= METRIC_CPU_TOL,
+         f"card metrics vs the same metrics on the CPU: {gaps}")
+    return gaps
+
+
+def run_tta_path(kc, data: str, tmp: str):
+    """cli eval --tta8 --device-metrics, bf16, batch 4, with the CAC
+    counts set to 0 just before and read just after; then the same eval
+    warm, and warm with host metrics, for their rates."""
+    batch = 4
+    n_images = len(SCENES)
+    out = os.path.join(tmp, "tta8_dm")
+    kc.reset_launches()
+    summary, wall = eval_once(data, out, os.path.join(tmp, "tta8_dm.json"),
+                              batch, ["--tta8", "--device-metrics"])
+    counts = kc.launches()
+    need(summary["tta_transforms"] == 8, "the eval did not run TTA8")
+    need(len(summary["per_image"]) == n_images and
+         all(math.isfinite(r["rmse"]) and math.isfinite(r["ssim"])
+             for r in summary["per_image"]),
+         "the TTA8 eval did not score every image")
+    batches = -(-n_images // batch)
+    for name, count in counts.items():
+        need(count == 2 * 5 * batches,
+             f"{name} launched {count} times in {batches} TTA8 batches; "
+             f"expected {2 * 5 * batches} (2 forwards x 5 CAC stages)")
+    gaps = check_device_metrics(summary, data, out)
+    warm_dm, _ = eval_once(data, os.path.join(tmp, "tta8_dm2"),
+                           os.path.join(tmp, "tta8_dm2.json"), batch,
+                           ["--tta8", "--device-metrics"])
+    warm_host, _ = eval_once(data, os.path.join(tmp, "tta8_host"),
+                             os.path.join(tmp, "tta8_host.json"), batch,
+                             ["--tta8"])
+    need(all(r["rmse"] == w["rmse"] for r, w in
+             zip(summary["per_image"], warm_dm["per_image"])),
+         "the warm TTA8 eval scored differently")
+    return summary, wall, counts, gaps, warm_dm, warm_host
+
+
+def first_batch(data: str):
+    from codon_tpu_torch.data.io import discover_pairs, load_sample
+    from codon_tpu_torch.data.pipeline import make_batch
+    names = discover_pairs(data)[:4]
+    return make_batch([load_sample(data, n) for n in names], 32, DEVICE,
+                      fixed_hw=MAIN_SHAPE[1:3])
+
+
+def compare_tta_paths(data: str):
+    """fp32 TTA8 on the first batch, through the kernels and through the
+    plain stage -> max abs diff."""
+    import dataclasses
+    import torch
+    from codon_tpu_torch.checkpoint.native import load_npz, params_from_numpy
+    from codon_tpu_torch.models.codon_net import CodonConfig, codon_forward
+    from codon_tpu_torch.models.tta import make_tta_forward
+    params = params_from_numpy(load_npz(CKPT), DEVICE)
+    b = first_batch(data)
+    outs = []
+    for impl in ("kernel", "torch"):
+        cfg = CodonConfig(dead_heads=True, cac_impl=impl)
+        tta = make_tta_forward(
+            lambda p, d, c, m, cfg=cfg: codon_forward(p, d, c, mask=m,
+                                                      cfg=cfg),
+            transforms=8)
+        outs.append(tta(params, b.depth, b.color, b.mask))
+    need(bool(torch.isfinite(outs[0]).all()), "non-finite fp32 TTA8")
+    diff = float((outs[0] - outs[1]).abs().max())
+    need(diff <= FWD_TOL, f"fp32 TTA8, kernels vs plain stage: max abs diff "
+         f"{diff} > {FWD_TOL}")
+    return diff
+
+
+def run_ensemble(kc, data: str, tmp: str):
+    """A 2-member ensemble with --tta: (a) in fp32 on the first batch,
+    through the cli's own forward, against the mean of the two members'
+    TTA forwards; (b) `cli eval` in bf16, with the CAC counts set to 0 just
+    before and read just after."""
+    import torch
+    from codon_tpu_torch import cli
+    b = first_batch(data)
+
+    def forward(ckpt):
+        args = cli._build_argparser().parse_args(
+            ["eval", "--ckpt", ckpt, "--tta", "--dtype", "fp32",
+             "--device", DEVICE])
+        ef = cli.make_eval_forward(args, torch.device(DEVICE))
+        return ef, ef.fwd(ef.params, b.depth, b.color, b.mask)
+
+    ef, ens = forward(f"{CKPT},{CKPT2}")
+    need(ef.ensemble and ef.tta == 4, "the cli did not build a TTA ensemble")
+    solo = [forward(c)[1] for c in (CKPT, CKPT2)]
+    diff = float((ens - (solo[0] + solo[1]) / 2).abs().max())
+    need(diff <= FWD_TOL, f"fp32 ensemble vs the mean of its members: max "
+         f"abs diff {diff} > {FWD_TOL}")
+    spread = float((solo[0] - solo[1]).abs().max())
+    need(spread > 10 * FWD_TOL, f"the two members agree to {spread}: "
+         f"the check could not tell them apart")
+
+    kc.reset_launches()
+    summary, wall = eval_once(data, os.path.join(tmp, "ens"),
+                              os.path.join(tmp, "ens.json"), 4, ["--tta"],
+                              ckpt=f"{CKPT},{CKPT2}")
+    counts = kc.launches()
+    batches = -(-len(SCENES) // 4)
+    for name, count in counts.items():
+        need(count == 2 * 5 * batches,
+             f"{name} launched {count} times in the ensemble eval; expected "
+             f"{2 * 5 * batches} (2 members x 5 CAC stages a batch)")
+    need(all(math.isfinite(summary[k]) for k in ("mean_rmse", "mean_ssim")),
+         "the ensemble eval's means are not finite")
+    return diff, spread, summary, wall, counts
+
+
 def main() -> int:
     try:
         import torch
@@ -375,12 +689,14 @@ def main() -> int:
               "run it from the root of a checkout", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from codon_tpu_torch import perf_copy_probe as probe
     from codon_tpu_torch.kernels import _build
     from codon_tpu_torch.kernels import cac as kc
+    from codon_tpu_torch.kernels import copy as kcopy
 
     # 1. the card
     card = card_line()
-    kind = torch.cuda.get_device_name(0)
+    kind_name = torch.cuda.get_device_name(0)
     say(card)
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"devices {torch.cuda.device_count()}")
@@ -422,33 +738,109 @@ def main() -> int:
 
         # 5. paths against each other
         d_paths, d_cpu = compare_paths(data)
-    say(f"fp32 forward b4 384x480: kernels vs plain stage max abs diff "
-        f"{d_paths:.3e} (<= {FWD_TOL}); card vs CPU 37x29 {d_cpu:.3e} "
-        f"(<= {CPU_TOL})")
+        say(f"fp32 forward b4 384x480: kernels vs plain stage max abs diff "
+            f"{d_paths:.3e} (<= {FWD_TOL}); card vs CPU 37x29 {d_cpu:.3e} "
+            f"(<= {CPU_TOL})")
 
-    # 6. results
-    replaces = {"cac_stats": "codon_tpu/kernels/cac.py:143",
-                "spatial_logits": "codon_tpu/kernels/cac.py:193",
-                "cac_apply": "codon_tpu/kernels/cac.py:239"}
+        # 6. the copy kernels against their plain version, the identity
+        t0 = time.time()
+        copy_checks = check_copies(kcopy, probe)
+        for r in copy_checks:
+            say(f"check {r['name']} tile {r['tile']} {tuple(r['shape'])} "
+                f"({r['blocks']} blocks): bitwise {r['bitwise']}, sentinel "
+                f"intact {r['guard']} {'ok' if r['ok'] else 'FAIL'}")
+        bad = [r for r in copy_checks if not r["ok"]]
+        need(not bad, f"{len(bad)} copy checks failed: {bad}")
+
+        # 7. the copy kernels' times at the probe's shape
+        copy_times = time_copies(kcopy, probe)
+        for name, t in copy_times.items():
+            say(f"copy {name} tile {t['tile']}: {t['ms']:.4f} ms "
+                f"{t['gb_per_s']:.0f} GB/s; plain {t['plain_ms']:.4f} ms; "
+                f"clone() {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f}"
+                f" ms by bytes ({t['bound_ms'] / t['ms']:.1%} of it)")
+        say(f"copy checks and timings: {time.time() - t0:.1f} s")
+
+        # 8. the probe's sweep: the copy kernels' path
+        sweep, copy_counts = run_probe(kcopy, probe)
+        ceiling = max(r["gb_per_s"] for r in sweep)
+        best = max(sweep, key=lambda r: r["gb_per_s"])
+        say(f"copy probe: launches {copy_counts}; measured copy ceiling "
+            f"{ceiling:.0f} GB/s ({best['tag'].strip()}), "
+            f"{ceiling / (HBM_BYTES_PER_S / 1e9):.1%} of the nominal "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+
+        # 9. TTA8 with on-device metrics: the CAC kernels' second path
+        tta, tta_wall, tta_counts, gaps, warm_dm, warm_host = \
+            run_tta_path(kc, data, tmp)
+        say(f"tta8 path: cli eval --tta8 --device-metrics bf16 b4, mean "
+            f"RMSE {tta['mean_rmse']}, mean SSIM {tta['mean_ssim']}, "
+            f"{tta_wall:.1f} s wall; launches {tta_counts}")
+        say(f"tta8 metrics: card vs host on the PNGs: RMSE max |d| "
+            f"{gaps['rmse_host']:.3e} (< {RMSE_HOST_TOL}), SSIM max |d| "
+            f"{gaps['ssim_host']:.3e} (< {SSIM_HOST_TOL}); card vs CPU, "
+            f"same tensors: RMSE {gaps['rmse_cpu']:.3e}, SSIM "
+            f"{gaps['ssim_cpu']:.3e} (<= {METRIC_CPU_TOL})")
+        for label, r in (("device metrics", warm_dm),
+                         ("host metrics", warm_host)):
+            say(f"tta8 warm, {label}: img/s steady "
+                f"{r['img_per_sec_steady']}, compute+D2H "
+                f"{r['img_per_sec_compute']}, end-to-end "
+                f"{r['img_per_sec_e2e']}")
+
+        # 10. fp32 TTA8 through the kernels against the plain stage
+        d_tta = compare_tta_paths(data)
+        say(f"fp32 tta8 b4 384x480: kernels vs plain stage max abs diff "
+            f"{d_tta:.3e} (<= {FWD_TOL})")
+
+        # 11. a 2-member ensemble with --tta
+        d_ens, spread, ens, ens_wall, ens_counts = run_ensemble(kc, data,
+                                                                tmp)
+        say(f"ensemble x4_ship4 + x4_holdout2 --tta: fp32 vs the mean of "
+            f"its members max abs diff {d_ens:.3e} (<= {FWD_TOL}; the "
+            f"members differ by up to {spread:.3e}); cli eval bf16 b4 mean "
+            f"RMSE {ens['mean_rmse']}, mean SSIM {ens['mean_ssim']}, "
+            f"{ens_wall:.1f} s wall; launches {ens_counts}")
+
+    # 12. results
     kernels = []
     for name in ("cac_stats", "spatial_logits", "cac_apply"):
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "codon_tpu_torch/kernels/csrc/cac.cu",
-            "replaces": replaces[name], "launches": counts[name],
+            "replaces": REPLACES[name], "launches": counts[name],
+            "launches_by_path": {"eval": counts[name],
+                                 "eval_tta8_device_metrics": tta_counts[name],
+                                 "eval_ensemble2_tta": ens_counts[name]},
             "max_abs_err": max(r["max_abs_err"] for r in checks[name]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "shape": list(MAIN_SHAPE), "dtype": "bfloat16"})
+    for name, kind, tiles in COPY_KERNELS:
+        t = copy_times[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "codon_tpu_torch/kernels/csrc/copy.cu",
+            "replaces": REPLACES[name], "launches": copy_counts[name],
+            "launches_by_path": {"perf_copy_probe": copy_counts[name]},
+            "max_abs_err": max(r["max_abs_err"] for r in copy_checks
+                               if r["name"] == name),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "tile": t["tile"],
+            "shape": list(probe.view(torch.empty(PROBE_SHAPE, device="meta"),
+                                     kind).shape),
+            "dtype": "bfloat16"})
+    for k in kernels:
         # the same numbers under the names the port's records use
-        kernels[-1]["max_err"] = kernels[-1]["max_abs_err"]
-        kernels[-1]["kernel_ms"] = kernels[-1]["ms"]
+        k["max_err"] = k["max_abs_err"]
+        k["kernel_ms"] = k["ms"]
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": kind_name,
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -31,6 +31,9 @@ class Batch:
     mask: Optional[torch.Tensor]   # (B, H, W, 1), None if no padding
     sizes: List[tuple]             # original (h, w) per image
     labels: List[Optional[np.ndarray]]  # uint8 host arrays
+    # (B, H, W, 1) float32 in [0, 255], padded, on the device; None when
+    # any sample lacks a label
+    label_dev: Optional[torch.Tensor] = None
 
 
 def _round_up(x: int, m: int) -> int:
@@ -62,6 +65,8 @@ def make_batch(samples: Sequence[Sample], pad_multiple: int = 32,
     depth = np.zeros((B, H, W, 1), np.float32)
     color = np.zeros((B, H, W, 1), np.float32)
     mask = np.zeros((B, H, W, 1), np.float32)
+    have_labels = all(s.label is not None for s in samples)
+    label = np.zeros((B, H, W, 1), np.float32) if have_labels else None
     uniform = all(h == H and w == W for h, w in zip(hs, ws))
     for i, s in enumerate(samples):
         h, w = s.depth.shape
@@ -71,12 +76,15 @@ def make_batch(samples: Sequence[Sample], pad_multiple: int = 32,
         depth[i, :h, :w, 0] = s.depth.astype(np.float32) / 255.0
         color[i, :h, :w, 0] = s.color.astype(np.float32) / 255.0
         mask[i, :h, :w, 0] = 1.0
+        if have_labels:
+            label[i, :h, :w, 0] = s.label
     return Batch(
         names=[s.name for s in samples[:real]],
         depth=_to_device(depth, device), color=_to_device(color, device),
         mask=None if uniform else _to_device(mask, device),
         sizes=list(zip(hs, ws)),
         labels=[s.label for s in samples],
+        label_dev=_to_device(label, device) if have_labels else None,
     )
 
 

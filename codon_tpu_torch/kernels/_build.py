@@ -26,6 +26,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # entry point -> argtypes: every pointer and the stream as c_void_p, so
 # ctypes never cuts a 64-bit address to a 32-bit int
 _SIGNATURES = {
@@ -34,6 +35,9 @@ _SIGNATURES = {
     "codon_spatial_logits": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "codon_cac_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _P],
+    "codon_copy4d": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "codon_copyflat": [_P, _P, _I, _I, _L, _I, _I, _P],
+    "codon_copy3d": [_P, _P, _I, _L, _I, _I, _P],
 }
 
 _lib = None
@@ -51,7 +55,7 @@ def library_path() -> str:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libcodon_cac_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"libcodon_kernels_{h.hexdigest()[:16]}.so")
 
 
 def nvcc() -> str:

@@ -9,6 +9,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
+import torch
+
 from codon_tpu_torch.core.params import DTypePolicy, FP32
 from codon_tpu_torch.models.codon_net import (CodonConfig, codon_forward,
                                               init_codon_params)
@@ -45,6 +47,16 @@ def get_variant(name: str, dtypes: DTypePolicy = FP32) -> Variant:
 
 def list_variants():
     return sorted(_REGISTRY)
+
+
+def with_scale_cond(fwd, value: float):
+    """Wrap fwd(params, depth, color, mask) so the depth input gains the
+    constant conditioning plane `value` (scale / 16) as a second channel,
+    as `cli eval --scale-cond` feeds the codon_sc variants."""
+    def cond_fwd(p, d, c, m):
+        return fwd(p, torch.cat([d, torch.full_like(d[..., :1], value)], -1),
+                   c, m)
+    return cond_fwd
 
 
 _register("codon", "published CODONNet, X4/X8 flavor (incl. dead heads)",

@@ -82,8 +82,7 @@ def test_eval_default_device_is_the_card():
             tcli._device(args.device)
 
 
-@pytest.mark.parametrize("flag", ["--tta", "--tta8", "--tile-devices=2",
-                                  "--dp-devices=2", "--device-metrics",
+@pytest.mark.parametrize("flag", ["--tile-devices=2", "--dp-devices=2",
                                   "--profile=x", "--resume"])
 def test_unported_flags_are_not_in_the_parser(flag, capsys):
     with pytest.raises(SystemExit):
@@ -102,3 +101,84 @@ def test_eval_refuses_torch_checkpoints(tmp_path):
     with pytest.raises(SystemExit, match="npz"):
         tcli.main(["eval", "--data-dir", data, "--ckpt", "model.pth",
                    "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--tta"], (True, False, False)),
+    (["--tta8"], (False, True, False)),
+    (["--device-metrics"], (False, False, True)),
+])
+def test_ported_flags_parse(flags, want):
+    args = tcli._build_argparser().parse_args(["eval", *flags])
+    assert (args.tta, args.tta8, args.device_metrics) == want
+
+
+# three images at batch 2: one padded, masked batch and a short last one
+TTA_SIZES = [(34, 29), (21, 30), (26, 19)]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--ckpt", "x4_ship4.npz", "--tta8", "--device-metrics"],
+    ["--ckpt", "x4_ship4.npz,x4_holdout2.npz", "--tta"],
+], ids=["tta8-device-metrics", "ensemble2-tta"])
+def test_eval_tta_matches_jax(tmp_path, extra):
+    """Per image: RMSE within 0.01 and SSIM within 1e-4, the tolerances of
+    test_eval_matches_jax (outputs agree to ~1e-5; the uint8 truncation
+    may move a pixel on an integer boundary by one level)."""
+    data = str(tmp_path / "CODON_X4")
+    names = write_scale_dir(data, TTA_SIZES, seed=3)
+    extra = [",".join(os.path.join(CKPT_DIR, c) for c in a.split(","))
+             if a.endswith(".npz") else a for a in extra]
+    got = _eval(tcli, data, str(tmp_path / "t_out"), str(tmp_path / "t.json"),
+                extra, ["--device", "cpu"])
+    want = _eval(jcli, data, str(tmp_path / "j_out"),
+                 str(tmp_path / "j.json"), extra, [])
+    assert set(got) == set(want)
+    assert got["tta_transforms"] == want["tta_transforms"] == \
+        (8 if "--tta8" in extra else 4)
+    assert [r["name"] for r in got["per_image"]] == \
+        [r["name"] for r in want["per_image"]] == names
+    for g, w in zip(got["per_image"], want["per_image"]):
+        assert g["rmse"] == pytest.approx(w["rmse"], abs=0.01)
+        assert g["ssim"] == pytest.approx(w["ssim"], abs=1e-4)
+    assert got["mean_rmse"] == pytest.approx(want["mean_rmse"], abs=0.01)
+    assert got["mean_ssim"] == pytest.approx(want["mean_ssim"], abs=1e-4)
+    for n in names:
+        a = imread_gray(os.path.join(tmp_path, "t_out", n + ".png"))
+        b = imread_gray(os.path.join(tmp_path, "j_out", n + ".png"))
+        assert int(np.abs(a.astype(int) - b.astype(int)).max()) <= 1
+        assert float((a != b).mean()) < 0.01
+
+
+def test_device_metrics_with_scale_cond_equal_host_metrics(tmp_path):
+    """Images that fill the padded shape: the metrics on tensors take their
+    exact unmasked paths, so they equal the host metrics on the same
+    forward (float32 against float64: RMSE 1e-3, SSIM 1e-5)."""
+    data = str(tmp_path / "d")
+    write_scale_dir(data, [(32, 32), (32, 32)], seed=4)
+    flags = ["--ckpt", os.path.join(CKPT_DIR, "x4_holdout_sc.npz"),
+             "--variant", "codon_sc", "--scale-cond", "--tta"]
+    dev = _eval(tcli, data, str(tmp_path / "a"), str(tmp_path / "a.json"),
+                [*flags, "--device-metrics"], ["--device", "cpu"])
+    host = _eval(tcli, data, str(tmp_path / "b"), str(tmp_path / "b.json"),
+                 flags, ["--device", "cpu"])
+    for g, w in zip(dev["per_image"], host["per_image"]):
+        assert g["rmse"] == pytest.approx(w["rmse"], abs=1e-3)
+        assert g["ssim"] == pytest.approx(w["ssim"], abs=1e-5)
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--variant", "codon,codon"], "not an ensemble"),
+    (["--ckpt", "a.npz,b.npz,c.npz", "--variant", "codon,codon"],
+     "2 names for 3"),
+    (["--ckpt", "x4_ship4.npz,x4_holdout2.npz", "--device-metrics"],
+     "not supported with --device-metrics"),
+], ids=["variants-without-ensemble", "variant-count", "ensemble-metrics"])
+def test_eval_argument_errors(tmp_path, flags, match):
+    data = str(tmp_path / "d")
+    write_scale_dir(data, TTA_SIZES[:1])
+    flags = [",".join(os.path.join(CKPT_DIR, c) for c in a.split(","))
+             if a.startswith("x4_") else a for a in flags]
+    with pytest.raises(SystemExit, match=match):
+        tcli.main(["eval", "--data-dir", data, "--device", "cpu", "--out",
+                   str(tmp_path / "o"), *flags])

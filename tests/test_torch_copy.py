@@ -1,0 +1,157 @@
+"""The copy kernels of the HBM copy probe and the port of the probe, on the CPU.
+
+The JAX package's copies are closures inside `scripts/perf_pallas_probe.py`'s
+`main()` and need a TPU; their function is the identity, which the plain
+versions and the CPU wrappers are held to here, bitwise. The sweep is held
+to the TPU probe's `run(...)` lines, read as text. The kernels themselves
+run in tests/test_torch_kernels_cuda.py, on a card.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from codon_tpu_torch import perf_copy_probe as probe
+from codon_tpu_torch.kernels import copy as kcopy
+
+from torch_port_common import REPO, one_torch_thread  # noqa: F401
+
+RAGGED = (3, 37, 29, 16)
+
+
+def _views(shape, seed):
+    """A seeded bfloat16 (B, H, W, C) tensor and its three views."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(
+        torch.bfloat16)
+    return {k: probe.view(x, k) for k in ("4d", "flat", "3d")}
+
+
+@pytest.mark.parametrize("kind,fn,tile", [
+    ("4d", kcopy.copy4d, 64), ("4d", kcopy.copy4d, 8),
+    ("flat", kcopy.copyflat, 64), ("flat", kcopy.copyflat, 8),
+    ("3d", kcopy.copy3d, 512), ("3d", kcopy.copy3d, 16),
+])
+def test_cpu_wrappers_are_the_identity(kind, fn, tile):
+    x = _views(RAGGED, seed=1)[kind]
+    n0 = fn.launches
+    got = fn(x, tile)
+    assert got.data_ptr() != x.data_ptr()
+    assert torch.equal(got.view(torch.int16), x.view(torch.int16))
+    assert torch.equal(kcopy.copy_plain(x).view(torch.int16),
+                       x.view(torch.int16))
+    # into a slice of a larger buffer: the bytes around it stay as they were
+    buf = torch.full((x.numel() + 64,), -7.0, dtype=x.dtype)
+    out = buf[32:32 + x.numel()].view(x.shape)
+    assert fn(x, tile, out=out) is out
+    assert torch.equal(out, x)
+    assert bool((buf[:32] == -7.0).all()) and bool((buf[-32:] == -7.0).all())
+    # the CPU path launches nothing, so it counts nothing
+    assert fn.launches == n0
+
+
+@pytest.mark.parametrize("kind,shape,tile,grid,last", [
+    # the probe's shape, (32, 370, 463, 64), in each view and tile
+    ("4d", (32, 370, 463, 64), 64, (6, 32), 50),
+    ("4d", (32, 370, 463, 64), 128, (3, 32), 114),
+    ("flat", (32, 370, 29632), 64, (6, 32), 50),
+    ("flat", (32, 370, 29632), 8, (47, 32), 2),
+    ("3d", (11840, 463, 64), 512, (24, 1), 64),
+    ("3d", (11840, 463, 64), 64, (185, 1), 64),
+    # small and edge cases
+    ("4d", (3, 37, 29, 16), 64, (1, 3), 37),
+    ("3d", (5, 2, 8), 1, (5, 1), 1),
+])
+def test_plan_grid_and_last_tile(kind, shape, tile, grid, last):
+    p = kcopy.plan(kind, shape, tile)
+    assert p.grid == grid
+    assert p.last_rows == last
+    assert p.blocks == grid[0] * grid[1]
+    assert p.ragged == (last != tile)
+    rows = shape[0] if kind == "3d" else shape[1]
+    assert (p.grid[0] - 1) * tile + p.last_rows == rows
+    assert 0 < p.last_rows <= tile
+
+
+def test_plan_refuses_bad_arguments():
+    with pytest.raises(ValueError):
+        kcopy.plan("2d", (4, 4), 2)
+    with pytest.raises(ValueError):
+        kcopy.plan("4d", (4, 4, 4), 2)
+    with pytest.raises(ValueError):
+        kcopy.plan("3d", (4, 4, 4), 0)
+
+
+def test_wrappers_check_views():
+    x = _views(RAGGED, seed=2)
+    with pytest.raises(ValueError):
+        kcopy.copy4d(x["flat"])
+    with pytest.raises(ValueError):
+        kcopy.copy3d(x["4d"])
+    with pytest.raises(ValueError):
+        kcopy.copyflat(x["flat"], out=torch.empty(x["flat"].shape))
+
+
+def _tpu_sweep():
+    """[(kind, tile, tag)] of the run(...) calls in the TPU probe's main()."""
+    path = os.path.join(REPO, "scripts", "perf_pallas_probe.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    kinds = {"copy4d": "4d", "copyflat": "flat", "copy3d": "3d"}
+    rows = []
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and getattr(node.func, "id", None)
+                == "run"):
+            tag = node.args[0].value
+            body = node.args[1].body
+            if isinstance(body, ast.Call) and isinstance(body.func, ast.Call):
+                inner = body.func
+                rows.append((kinds[inner.func.id], inner.args[0].value, tag))
+            else:
+                rows.append((None, None, tag))
+    return rows     # ast.walk meets the calls of main()'s body in order
+
+
+def test_sweep_is_the_tpu_probes():
+    tpu = _tpu_sweep()
+    assert len(tpu) == 8
+    port = probe.SWEEP
+    # the seven copies, in order, with the TPU probe's tags
+    assert list(port[:7]) == tpu[:7]
+    # the library line: the TPU probe's `t * 1.0001` through XLA
+    assert tpu[7] == (None, None, "xla copy")
+    assert port[7][0] == "scale" and "1.0001" in port[7][2]
+    assert port[8][0] == "clone"
+
+
+def test_probe_runs_on_the_cpu():
+    res = subprocess.run(
+        [sys.executable, "-m", "codon_tpu_torch.perf_copy_probe", "--device",
+         "cpu", "--shape", "2,9,7,16"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert res.returncode == 0, res.stderr
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("RESULT")]
+    assert len(lines) == 9
+    assert [ln.split(":")[0][len("RESULT "):].rstrip() for ln in lines] == \
+        [tag for _, _, tag in probe.SWEEP]
+    assert all(ln.rstrip().endswith("GB/s") for ln in lines)
+    assert "cpu" in res.stdout.splitlines()[0]
+
+
+def test_probe_main_returns_the_sweeps_rows(capsys):
+    rows = probe.main(["--device", "cpu", "--shape", "2,9,7,16"])
+    assert [r["tag"] for r in rows] == [tag for _, _, tag in probe.SWEEP]
+    assert all(r["ms"] > 0 and r["gb_per_s"] > 0 for r in rows)
+    out = capsys.readouterr().out
+    assert out.count("RESULT ") == len(rows)
+
+
+def test_probe_defaults_to_the_card():
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            probe.main([])

@@ -167,7 +167,7 @@ def test_discover_and_load_match_jax(tmp_path):
 
 def _assert_batches_equal(tb, jb):
     assert tb.names == jb.names and tb.sizes == jb.sizes
-    for f in ("depth", "color", "mask"):
+    for f in ("depth", "color", "mask", "label_dev"):
         t, j = getattr(tb, f), getattr(jb, f)
         assert (t is None) == (j is None), f
         if t is not None:
@@ -196,6 +196,17 @@ def test_make_batch_uniform_has_no_mask(tmp_path):
     b = tpipe.make_batch([tio.load_sample(root, n) for n in names], 32,
                          device="cpu")
     assert b.mask is None
+
+
+def test_make_batch_label_dev_is_none_without_every_label(tmp_path):
+    root = str(tmp_path / "d")
+    names = write_scale_dir(root, [(34, 29), (21, 30)])
+    os.remove(os.path.join(root, "input_label", names[1] + ".png"))
+    samples = [tio.load_sample(root, n) for n in names]
+    tb = tpipe.make_batch(samples, 32, device="cpu")
+    jb = jpipe.make_batch([jio.load_sample(root, n) for n in names], 32)
+    assert tb.label_dev is None and jb.label_dev is None
+    _assert_batches_equal(tb, jb)
 
 
 def test_make_batch_refuses_mismatched_label(tmp_path):

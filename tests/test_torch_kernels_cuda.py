@@ -8,7 +8,11 @@ JAX, so it runs on the machine with the card, where the repo's conftest
 
 Tolerances: float32 atol 1e-5 / rtol 1e-4 (only the order of float32 sums
 differs); bfloat16 two ulps of its 8-bit significand (a pooled mean or a
-gate value rounded once to bf16 may land one ulp apart).
+gate value rounded once to bf16 may land one ulp apart). The CAC kernels
+are also held where TTA puts the valid region (flipped to the bottom
+right, and at the transposed padded shape 480 x 384). The copy kernels
+compute the identity and are held to it bitwise, with a sentinel around
+the output that must stay untouched.
 """
 import dataclasses
 import os
@@ -122,3 +126,113 @@ def test_cuda_forward_kernel_path_matches_torch_path():
                            cfg=dataclasses.replace(cfg, cac_impl="torch"))
     assert float((k - t).abs().max()) <= 1e-4
 
+
+
+# ---------------------------------------------------------------------------
+# the CAC kernels where TTA puts the valid region: flipped to the bottom
+# right, and at the transposed padded shape 480 x 384
+# ---------------------------------------------------------------------------
+
+def _placed_inputs(shape, valid, corner, dtype, seed):
+    """Towers zero outside each image's valid region, which sits at the
+    top left or (flipped) at the bottom right."""
+    n, h, w, c = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mask = torch.zeros((n, h, w, 1), device="cuda")
+    for i, (vh, vw) in enumerate(valid):
+        if corner == "bottom_right":
+            mask[i, h - vh:, w - vw:] = 1.0
+        else:
+            mask[i, :vh, :vw] = 1.0
+    towers = [(torch.randn(shape, generator=g, device="cuda") * mask)
+              .to(dtype).contiguous() for _ in range(4)]
+    gate = torch.rand((n, 1, c), generator=g, device="cuda")
+    logits = torch.randn((n, h, w), generator=g, device="cuda").to(dtype)
+    sp_w = torch.randn((5, 5, 2, 1), generator=g, device="cuda") * 0.2
+    return towers, mask.to(dtype), gate, logits, sp_w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape,valid,corner", [
+    ((N, H, W, C), [(H, W), (19, 15)], "bottom_right"),
+    ((2, 480, 384, C), [(463, 370), (450, 375)], "top_left"),
+    ((2, 480, 384, C), [(463, 370), (450, 375)], "bottom_right"),
+], ids=["odd-flipped", "transposed", "transposed-flipped"])
+@needs_cuda
+def test_cuda_cac_kernels_where_tta_puts_the_mask(dtype, shape, valid,
+                                                  corner):
+    towers, m, gate, logits, sp_w = _placed_inputs(shape, valid, corner,
+                                                   dtype, seed=70)
+    atol, rtol = CUDA_TOLS[dtype]
+    npix = shape[1] * shape[2]
+    got = tcac.cac_stats(towers[0], towers[1], m)
+    want = tcac.cac_stats_plain(towers[0], towers[1], m)
+    # sums as means, at the float32 tolerance in every dtype (both sides
+    # add the same rounded inputs in float32), maxes likewise
+    _close(got[0] / npix, want[0] / npix, *CUDA_TOLS[torch.float32])
+    _close(got[1], want[1], *CUDA_TOLS[torch.float32])
+    for g, w in zip(got[2:], want[2:]):
+        _close(g, w, atol, rtol)
+    _, _, cmax, cmean = want
+    _close(tcac.spatial_logits(cmax, cmean, sp_w),
+           tcac.spatial_logits_plain(cmax, cmean, sp_w), atol, rtol)
+    for g, w in zip(tcac.cac_apply(*towers, gate, logits),
+                    tcac.cac_apply_plain(*towers, gate, logits)):
+        _close(g, w, atol, rtol)
+
+
+# ---------------------------------------------------------------------------
+# the copy kernels: bitwise, and nothing written outside the output
+# ---------------------------------------------------------------------------
+
+SENTINEL = -7.0     # the inputs lie in [0, 1)
+GUARD = 4096        # elements of sentinel before and after the output
+
+
+def _copy_into_guarded(fn, x, tile):
+    buf = torch.full((x.numel() + 2 * GUARD,), SENTINEL, dtype=x.dtype,
+                     device=x.device)
+    out = buf[GUARD:GUARD + x.numel()].view(x.shape)
+    n0 = fn.launches
+    assert fn(x, tile, out=out) is out
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    return buf, out
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 29, 64), (2, 64, 8, 64),
+                                   (5, 9, 7, 8)],
+                         ids=["ragged", "even", "narrow"])
+@pytest.mark.parametrize("kind,tile", [
+    ("4d", 64), ("4d", 128), ("4d", 8), ("flat", 64), ("flat", 8),
+    ("3d", 512), ("3d", 64), ("3d", 7),
+])
+@needs_cuda
+def test_cuda_copy_kernels_are_bitwise_and_stay_inside(kind, tile, shape):
+    from codon_tpu_torch import perf_copy_probe as probe
+    from codon_tpu_torch.kernels import copy as kcopy
+    fn = {"4d": kcopy.copy4d, "flat": kcopy.copyflat,
+          "3d": kcopy.copy3d}[kind]
+    g = torch.Generator(device="cuda").manual_seed(80)
+    x = probe.view(torch.rand(shape, generator=g, device="cuda")
+                   .to(torch.bfloat16), kind)
+    buf, out = _copy_into_guarded(fn, x, tile)
+    assert torch.equal(out.view(torch.int16), x.view(torch.int16))
+    assert torch.equal(out, kcopy.copy_plain(x))
+    assert bool((buf[:GUARD] == SENTINEL).all())
+    assert bool((buf[GUARD + x.numel():] == SENTINEL).all())
+
+
+@needs_cuda
+def test_cuda_copy_wrappers_refuse_bad_inputs():
+    from codon_tpu_torch.kernels import copy as kcopy
+    x = torch.zeros((2, 5, 3, 64), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError):          # not contiguous
+        kcopy.copy4d(x.transpose(1, 2))
+    with pytest.raises(ValueError):          # a pixel of 6 bytes
+        kcopy.copy4d(torch.zeros((2, 5, 3, 3), dtype=torch.bfloat16,
+                                 device="cuda"))
+    buf = torch.zeros(x.numel() + 1, dtype=x.dtype, device="cuda")
+    with pytest.raises(ValueError):          # out off a 16-byte boundary
+        kcopy.copy4d(x, out=buf[1:].view(x.shape))
