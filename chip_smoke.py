@@ -5,7 +5,9 @@
 
 Run from the root of a checkout, on a machine with one NVIDIA H100. It
   1. prints the card's name and power limit as nvidia-smi gives them;
-  2. builds the CUDA kernels from codon_tpu_torch/kernels/csrc with nvcc;
+  2. builds the CUDA kernels from codon_tpu_torch/kernels/csrc with nvcc,
+     and prints each kernel's registers, static shared memory and spills
+     as ptxas reported them, on one line;
   3. holds each kernel against its plain PyTorch version on the card, in
      float32, bfloat16 and float16, at the main path's shape (batch 4,
      384 x 480 padded, a mask marking 370 x 463 valid, C = 64), at an odd
@@ -27,8 +29,10 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
      identity, bitwise, at both of the probe's tiles, at its shape
      (32, 370, 463, 64) bf16 and at (3, 37, 29, 64), each writing into the
      middle of a sentinel-filled buffer whose sentinel must stay intact;
-  7. times each copy kernel at its first tile, its plain version and
-     x.clone() at the probe's shape;
+  7. times each copy kernel at both of its tiles, its plain version and
+     x.clone() at the probe's shape, with each kernel's design (copyflat
+     one block a TPU tile; copy4d and copy3d a ring of bulk copies over a
+     persistent grid), grid and chunk size;
   8. runs the probe's sweep (`perf_copy_probe.main`), its RESULT lines
      printed, with the copy kernels' launch counters set to 0 just before
      and read just after, and prints the measured copy ceiling as a share
@@ -132,6 +136,7 @@ RAGGED_COPY_SHAPE = (3, 37, 29, 64)
 COPY_KERNELS = (("copy4d", "4d", (64, 128)), ("copyflat", "flat", (64, 8)),
                 ("copy3d", "3d", (512, 64)))
 COPY_SENTINEL = -7.0        # the inputs lie in [0, 1)
+COPY_ITERS = 50             # timed calls a copy line, ~25 ms of copying
 COPY_GUARD = 4096           # sentinel elements before and after the output
 # the synthetic scale dir: Middlebury's 463 x 370 and a second size that
 # pads to the same 480 x 384
@@ -467,8 +472,8 @@ def check_copies(kcopy, probe):
                     bool((buf[COPY_GUARD + x.numel():] ==
                           COPY_SENTINEL).all())
                 rows.append({"name": name, "shape": list(x.shape),
-                             "tile": tile, "blocks": kcopy.plan(
-                                 kind, x.shape, tile).blocks,
+                             "tile": tile,
+                             **copy_layout(kcopy, kind, x, tile),
                              "max_abs_err": float((out.float() - x.float())
                                                   .abs().max()),
                              "ok": same and guard, "bitwise": same,
@@ -477,9 +482,22 @@ def check_copies(kcopy, probe):
     return rows
 
 
+def copy_layout(kcopy, kind, x, tile):
+    """How a copy kernel cuts its view x at `tile`: -> {design, grid,
+    chunk_bytes, chunks}; copyflat's grid is the TPU's, one block a tile."""
+    if kind == "flat":
+        return {"design": "per_tile",
+                "grid": kcopy.plan(kind, x.shape, tile).blocks,
+                "chunk_bytes": None, "chunks": None}
+    m = kcopy.chunk_map(kind, x.shape, tile, x.element_size())
+    return {"design": "bulk_ring", "grid": kcopy.ring_grid(),
+            "chunk_bytes": m.chunk_bytes, "chunks": m.chunks}
+
+
 def time_copies(kcopy, probe):
-    """Each copy kernel at its first tile of the sweep, at the probe's
-    shape: -> {name: timings}."""
+    """Each copy kernel at both of its tiles of the sweep, at the probe's
+    shape, beside its plain version and x.clone(): -> {name: timings}, the
+    first tile's numbers at the top and every tile's under "by_tile"."""
     import torch
     g = torch.Generator(device=DEVICE).manual_seed(8)
     x4 = torch.rand(PROBE_SHAPE, generator=g, device=DEVICE).to(
@@ -491,14 +509,40 @@ def time_copies(kcopy, probe):
         x = probe.view(x4, kind)
         fn = getattr(kcopy, name)
         dst = torch.empty_like(x)
-        ms = time_ms(lambda: fn(x, tiles[0], out=dst))
+        clone_ms = time_ms(lambda: x.clone(), iters=COPY_ITERS)
+        by_tile = []
+        for tile in tiles:
+            ms = time_ms(lambda: fn(x, tile, out=dst), iters=COPY_ITERS)
+            by_tile.append({"tile": tile, "ms": ms,
+                            "gb_per_s": nbytes / ms / 1e6,
+                            "of_clone": clone_ms / ms,
+                            **copy_layout(kcopy, kind, x, tile)})
         out[name] = {
-            "tile": tiles[0], "ms": ms,
-            "plain_ms": time_ms(lambda: kcopy.copy_plain(x, dst)),
-            "library_ms": time_ms(lambda: x.clone()),
-            "bound_ms": bound_ms, "bound_by": "bytes",
-            "gb_per_s": nbytes / ms / 1e6}
+            **by_tile[0], "by_tile": by_tile,
+            "plain_ms": time_ms(lambda: kcopy.copy_plain(x, dst),
+                                iters=COPY_ITERS),
+            "library_ms": clone_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes"}
     return out
+
+
+def layout_text(r) -> str:
+    if r["design"] == "per_tile":
+        return f"per_tile, {r['grid']} blocks"
+    return (f"bulk_ring, grid {r['grid']}, {r['chunks']} chunks of "
+            f"{r['chunk_bytes']} B")
+
+
+def ptxas_text(usage: dict, ring_bytes: int) -> str:
+    """One line of ptxas' report: registers, static shared memory and
+    spills of each kernel."""
+    parts = []
+    for name, u in sorted(usage.items()):
+        extra = (f" + {ring_bytes} B dynamic ring"
+                 if "ring_copy_kernel" in name else "")
+        parts.append(f"{name} {u['registers']} regs {u['smem_bytes']} B "
+                     f"smem{extra} {u['spill_bytes']} B spill")
+    return "; ".join(parts)
 
 
 def run_probe(kcopy, probe):
@@ -706,6 +750,9 @@ def main() -> int:
     _build.load()
     say(f"build: {os.path.basename(path)}: "
         + (f"nvcc {build_s:.1f} s" if build_s else "already built"))
+    usage = _build.ptxas_usage(path)
+    need(bool(usage), "the build left no ptxas report")
+    say("ptxas: " + ptxas_text(usage, kcopy.RING_BYTES))
 
     # 3. kernels against their plain versions
     t0 = time.time()
@@ -747,7 +794,7 @@ def main() -> int:
         copy_checks = check_copies(kcopy, probe)
         for r in copy_checks:
             say(f"check {r['name']} tile {r['tile']} {tuple(r['shape'])} "
-                f"({r['blocks']} blocks): bitwise {r['bitwise']}, sentinel "
+                f"({layout_text(r)}): bitwise {r['bitwise']}, sentinel "
                 f"intact {r['guard']} {'ok' if r['ok'] else 'FAIL'}")
         bad = [r for r in copy_checks if not r["ok"]]
         need(not bad, f"{len(bad)} copy checks failed: {bad}")
@@ -755,10 +802,14 @@ def main() -> int:
         # 7. the copy kernels' times at the probe's shape
         copy_times = time_copies(kcopy, probe)
         for name, t in copy_times.items():
-            say(f"copy {name} tile {t['tile']}: {t['ms']:.4f} ms "
-                f"{t['gb_per_s']:.0f} GB/s; plain {t['plain_ms']:.4f} ms; "
-                f"clone() {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f}"
-                f" ms by bytes ({t['bound_ms'] / t['ms']:.1%} of it)")
+            for r in t["by_tile"]:
+                say(f"copy {name} tile {r['tile']} ({layout_text(r)}): "
+                    f"{r['ms']:.4f} ms {r['gb_per_s']:.0f} GB/s, "
+                    f"{r['of_clone']:.1%} of clone(); bound "
+                    f"{t['bound_ms']:.4f} ms by bytes "
+                    f"({t['bound_ms'] / r['ms']:.1%} of it)")
+            say(f"copy {name}: plain {t['plain_ms']:.4f} ms; clone() "
+                f"{t['library_ms']:.4f} ms")
         say(f"copy checks and timings: {time.time() - t0:.1f} s")
 
         # 8. the probe's sweep: the copy kernels' path
@@ -830,6 +881,8 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "tile": t["tile"],
+            "design": t["design"], "grid": t["grid"],
+            "chunk_bytes": t["chunk_bytes"], "by_tile": t["by_tile"],
             "shape": list(probe.view(torch.empty(PROBE_SHAPE, device="meta"),
                                      kind).shape),
             "dtype": "bfloat16"})

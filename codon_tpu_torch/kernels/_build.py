@@ -6,6 +6,9 @@ the flags, so a changed source rebuilds and an unchanged one loads the
 library already built. The sources have a plain C interface and include no
 PyTorch header: nvcc takes seconds, not the minutes that
 `torch.utils.cpp_extension.load` takes for a source built against torch.
+ptxas reports each kernel's registers, shared memory and spills (`-Xptxas
+-v`); the report is kept beside the library (`<library>.log`), its kernel
+names demangled by the toolkit's cu++filt, and read by `ptxas_usage()`.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -22,7 +26,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,9 +39,10 @@ _SIGNATURES = {
     "codon_spatial_logits": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "codon_cac_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _P],
-    "codon_copy4d": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "codon_copy4d": [_P, _P, _L, _L, _L, _L, _P],
     "codon_copyflat": [_P, _P, _I, _I, _L, _I, _I, _P],
-    "codon_copy3d": [_P, _P, _I, _L, _I, _I, _P],
+    "codon_copy3d": [_P, _P, _L, _L, _L, _P],
+    "codon_copy_ring_grid": [ctypes.POINTER(_I)],
 }
 
 _lib = None
@@ -89,12 +94,69 @@ def build() -> tuple:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
                            f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    if res.stderr.strip():
-        print(res.stderr.strip(), file=sys.stderr)
+    with open(f"{path}.log", "w") as f:
+        f.write(demangle(res.stdout + res.stderr))
+    # ptxas' per-kernel report goes to the log; anything else is shown
+    said = [ln for ln in (res.stdout + res.stderr).splitlines()
+            if ln.strip() and not ln.startswith("ptxas info")
+            and not re.match(r"\s+\d+ bytes stack frame", ln)]
+    if said:
+        print("\n".join(said), file=sys.stderr)
     os.replace(tmp, path)
     print(f"codon_tpu_torch: built {os.path.basename(path)} with nvcc in "
           f"{dt:.1f} s", file=sys.stderr)
     return path, dt
+
+
+def demangle(report: str) -> str:
+    """ptxas' report with each mangled kernel name replaced by what
+    cu++filt (beside nvcc) makes of it, without its parameters, e.g. 'void
+    (anonymous namespace)::cac_apply_kernel<__half>'; unchanged if
+    cu++filt is missing or fails."""
+    names = sorted(set(re.findall(r"\b_Z\w+", report)))
+    tool = os.path.join(os.path.dirname(nvcc()), "cu++filt")
+    if not names or not os.path.exists(tool):
+        return report
+    res = subprocess.run([tool, "-p", *names], capture_output=True, text=True)
+    plain = res.stdout.splitlines()
+    if res.returncode or len(plain) != len(names):
+        return report
+    table = dict(zip(names, plain))
+    return re.sub(r"\b_Z\w+", lambda m: table[m.group()], report)
+
+
+def ptxas_usage(path: str) -> dict:
+    """{kernel: {"registers", "smem_bytes", "spill_bytes"}} from the ptxas
+    report of the library at `path`, or {} if it was built without one.
+    smem_bytes is static shared memory; a kernel's dynamic shared memory
+    is set at launch."""
+    log = f"{path}.log"
+    if not os.path.exists(log):
+        return {}
+    usage, name = {}, None
+    with open(log) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(.+?)' for", line)
+            if m:
+                # a demangled name: the kernel and its template arguments
+                short = (None if m.group(1).startswith("_Z") else
+                         re.search(r"\w+_kernel(<[^>]*>)?", m.group(1)))
+                name = short.group() if short else m.group(1)
+                usage[name] = {"registers": 0, "smem_bytes": 0,
+                               "spill_bytes": 0}
+                continue
+            if name is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                usage[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                usage[name]["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                usage[name]["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return usage
 
 
 def load():

@@ -2,13 +2,21 @@
 plain PyTorch version.
 
 Counterparts of the three Pallas copies of `scripts/perf_pallas_probe.py`,
-each the identity on one view of a contiguous tensor, cut into the same
-tiles as the TPU kernel; one thread block copies one tile:
+each the identity on one view of a contiguous tensor, planned from the same
+tiles as the TPU kernel (`plan`):
 
   copy4d(x, th)    x (B, H, W, C): (1, th, W, C) tiles, grid (B, ceil(H/th))
   copyflat(x, th)  x (B, H, W*C):  (1, th, W*C) tiles, the same grid
   copy3d(x, tr)    x (R, W, C):    (tr, W, C) tiles over R = B*H rows,
                                    grid (ceil(R/tr),)
+
+Two designs. copyflat launches the TPU's grid, one thread block a tile.
+copy4d and copy3d cut every tile into bulk chunks of `CHUNK_BYTES` (the
+last chunk of a tile shorter; `chunk_map`) and launch a persistent grid,
+as many blocks as the ring's shared memory lets an SM hold on every SM
+(`ring_grid`), whatever the tile; each block moves its chunks through a
+ring of `STAGES` shared-memory stages with Hopper's bulk asynchronous
+copies.
 
 The CUDA source is `csrc/copy.cu`. Each wrapper takes the plain version
 when its tensor lies on the CPU, and on a CUDA tensor launches the kernel or
@@ -19,6 +27,7 @@ of a larger buffer); else a new tensor is allocated.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 from typing import Optional
@@ -29,13 +38,19 @@ from codon_tpu_torch.kernels import _build
 
 _VECTOR = 16                # bytes a thread moves at a time
 _NDIM = {"4d": 4, "flat": 3, "3d": 3}
+# the ring of copy4d and copy3d, fixed in csrc/copy.cu (kChunk, kStages)
+# and mirrored here: bytes a bulk chunk, shared-memory stages a block (at
+# 4 x 32 KB an H100 SM holds one block)
+CHUNK_BYTES = 32 * 1024
+STAGES = 4
+RING_BYTES = STAGES * CHUNK_BYTES + 8 * STAGES   # stages and their mbarriers
 
 
 @dataclasses.dataclass(frozen=True)
 class CopyPlan:
-    """How one copy is cut into blocks: grid (x, y) as launched, the rows of
-    a tile, and the rows of the last tile of an image (4d, flat) or of the
-    whole row stack (3d)."""
+    """How the TPU kernel cuts one copy into tiles: its grid (x, y), the rows
+    of a tile, and the rows of the last tile of an image (4d, flat) or of
+    the whole row stack (3d). copyflat launches this grid as it is."""
     grid: tuple
     tile_rows: int
     last_rows: int
@@ -66,6 +81,69 @@ def plan(kind: str, shape, tile: int) -> CopyPlan:
     tiles = -(-rows // tile)
     return CopyPlan(grid=(tiles, images), tile_rows=tile,
                     last_rows=rows - (tiles - 1) * tile)
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkMap:
+    """How copy4d and copy3d cut a copy into bulk chunks, in the kernel's
+    own arguments: `runs` runs (the images of the 4d view, one for the 3d
+    view) of `tiles` TPU tiles, each `tile_bytes` long but the last of a
+    run, `last_bytes` long; every tile cut into chunks of `chunk_bytes`
+    (the kernel's, CHUNK_BYTES), the last chunk of a tile shorter. No grid:
+    the kernel's grid depends on the card and the ring, not on the tile."""
+    tile_bytes: int
+    last_bytes: int
+    tiles: int
+    runs: int
+    chunk_bytes: int = CHUNK_BYTES
+
+    @property
+    def per_tile(self) -> int:
+        return -(-self.tile_bytes // self.chunk_bytes)
+
+    @property
+    def per_run(self) -> int:
+        return ((self.tiles - 1) * self.per_tile
+                + -(-self.last_bytes // self.chunk_bytes))
+
+    @property
+    def chunks(self) -> int:
+        return self.runs * self.per_run
+
+    @property
+    def run_bytes(self) -> int:
+        return (self.tiles - 1) * self.tile_bytes + self.last_bytes
+
+    def chunk(self, i: int) -> tuple:
+        """Chunk i -> (byte offset, bytes), as the kernel's `chunk_at`
+        finds it."""
+        run, r = divmod(i, self.per_run)
+        t, c = divmod(r, self.per_tile)
+        tb = self.last_bytes if t == self.tiles - 1 else self.tile_bytes
+        start = c * self.chunk_bytes
+        return (run * self.run_bytes + t * self.tile_bytes + start,
+                min(self.chunk_bytes, tb - start))
+
+
+def chunk_map(kind: str, shape, tile: int, element_size: int) -> ChunkMap:
+    """The chunks of copy4d ("4d") or copy3d ("3d") over a contiguous
+    `shape` of `element_size`-byte elements, cut from `plan`'s tiles."""
+    if kind not in ("4d", "3d"):
+        raise ValueError(f"only copy4d and copy3d copy by chunks, got "
+                         f"{kind!r}")
+    p = plan(kind, shape, tile)
+    row = math.prod(shape[2 if kind == "4d" else 1:]) * element_size
+    return ChunkMap(tile_bytes=p.tile_rows * row, last_bytes=p.last_rows * row,
+                    tiles=p.grid[0], runs=p.grid[1])
+
+
+def ring_grid() -> int:
+    """Blocks of the persistent grid copy4d and copy3d launch on the current
+    CUDA device: the blocks of the ring an SM holds, times the SMs."""
+    grid = ctypes.c_int(0)
+    _build.check(_build.load().codon_copy_ring_grid(ctypes.byref(grid)),
+                 "copy ring grid")
+    return grid.value
 
 
 def copy_plain(x: torch.Tensor, out: Optional[torch.Tensor] = None):
@@ -102,24 +180,22 @@ def _launch(kind, fn, x, out, tile):
         if t.data_ptr() % _VECTOR:
             raise ValueError(f"copy {kind}: {what} must start on a "
                              f"{_VECTOR}-byte boundary")
-    # a row: W*C elements (the flat view's last axis is already W*C); the
-    # 4d kernel walks a row pixel by pixel, so a pixel's C elements too
-    # must fill whole vectors
+    # a row: W*C elements (the flat view's last axis is already W*C); a
+    # tile is whole rows, so whole 16-byte vectors too
     es = x.element_size()
     row_bytes = math.prod(x.shape[1 if kind == "3d" else 2:]) * es
-    unit = x.shape[-1] * es if kind == "4d" else row_bytes
-    if unit % _VECTOR:
-        raise ValueError(f"copy {kind}: a {'pixel' if kind == '4d' else 'row'}"
-                         f" of {unit} bytes is not a multiple of {_VECTOR}")
+    if row_bytes % _VECTOR:
+        raise ValueError(f"copy {kind}: a row of {row_bytes} bytes is not a "
+                         f"multiple of {_VECTOR}")
     if x.numel() == 0:
         return out
-    tiles = plan(kind, x.shape, tile).grid[0]
-    if kind == "4d":
-        args = (*x.shape[:3], x.shape[3] * es, tile, tiles)
-    elif kind == "flat":
-        args = (*x.shape[:2], row_bytes, tile, tiles)
+    if kind == "flat":
+        args = (*x.shape[:2], row_bytes, tile,
+                plan(kind, x.shape, tile).grid[0])
     else:
-        args = (x.shape[0], row_bytes, tile, tiles)
+        m = chunk_map(kind, x.shape, tile, es)
+        args = ((m.tile_bytes, m.last_bytes, m.tiles, m.runs)
+                if kind == "4d" else (m.tile_bytes, m.last_bytes, m.tiles))
     lib = _build.load()
     with torch.cuda.device(x.device):
         rc = getattr(lib, f"codon_copy{kind}")(
@@ -131,7 +207,8 @@ def _launch(kind, fn, x, out, tile):
 
 
 def copy4d(x: torch.Tensor, th: int = 64, out=None) -> torch.Tensor:
-    """x (B, H, W, C) -> a copy, one block per (1, th, W, C) tile."""
+    """x (B, H, W, C) -> a copy, its (1, th, W, C) tiles cut into bulk
+    chunks over the persistent grid."""
     return _launch("4d", copy4d, x, out, th)
 
 
@@ -141,7 +218,8 @@ def copyflat(x: torch.Tensor, th: int = 64, out=None) -> torch.Tensor:
 
 
 def copy3d(x: torch.Tensor, tr: int = 512, out=None) -> torch.Tensor:
-    """x (R, W, C) -> a copy, one block per (tr, W, C) tile of rows."""
+    """x (R, W, C) -> a copy, its (tr, W, C) tiles of rows cut into bulk
+    chunks over the persistent grid."""
     return _launch("3d", copy3d, x, out, tr)
 
 

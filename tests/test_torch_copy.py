@@ -7,6 +7,7 @@ to the TPU probe's `run(...)` lines, read as text. The kernels themselves
 run in tests/test_torch_kernels_cuda.py, on a card.
 """
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -75,6 +76,99 @@ def test_plan_grid_and_last_tile(kind, shape, tile, grid, last):
     rows = shape[0] if kind == "3d" else shape[1]
     assert (p.grid[0] - 1) * tile + p.last_rows == rows
     assert 0 < p.last_rows <= tile
+
+
+# the probe's shape in the 4d and 3d views, bf16, at the sweep's tiles:
+# (kind, shape, tile, chunks a full tile, chunks in the last tile, chunks)
+PROBE_CHUNKS = [
+    ("4d", (32, 370, 463, 64), 64, 116, 91, 21472),
+    ("4d", (32, 370, 463, 64), 128, 232, 207, 32 * (2 * 232 + 207)),
+    ("3d", (11840, 463, 64), 512, 926, 116, 21414),
+    ("3d", (11840, 463, 64), 64, 116, 116, 185 * 116),
+]
+
+
+def _tile_ends(kind, shape, tile, es):
+    """Byte offsets at which the TPU tiles end, from `plan` alone."""
+    p = kcopy.plan(kind, shape, tile)
+    row = int(np.prod(shape[2 if kind == "4d" else 1:])) * es
+    rows = shape[1] if kind == "4d" else shape[0]
+    ends = []
+    for run in range(p.grid[1]):
+        for t in range(p.grid[0]):
+            ends.append((run * rows + min((t + 1) * tile, rows)) * row)
+    return np.array(ends, np.int64)
+
+
+def _check_cover(m, kind, shape, tile, es):
+    """Every byte of every tile in exactly one chunk, no chunk across a
+    tile's end, every chunk a multiple of 16 bytes and at most chunk_bytes;
+    -> [(offset, bytes)] of the chunks."""
+    chunks = np.array([m.chunk(i) for i in range(m.chunks)], np.int64)
+    off, size = chunks[:, 0], chunks[:, 1]
+    assert off[0] == 0
+    assert np.array_equal(off[1:], off[:-1] + size[:-1])
+    assert off[-1] + size[-1] == int(np.prod(shape)) * es
+    assert np.all(size % 16 == 0) and np.all(size > 0)
+    assert np.all(size <= m.chunk_bytes)
+    ends = _tile_ends(kind, shape, tile, es)
+    # the first tile end after a chunk's start is at or after its end
+    nxt = ends[np.searchsorted(ends, off, side="right")]
+    assert np.all(off + size <= nxt)
+    return chunks
+
+
+@pytest.mark.parametrize("kind,shape,tile,per_tile,per_last,total",
+                         PROBE_CHUNKS)
+def test_chunk_map_at_the_probes_tiles(kind, shape, tile, per_tile, per_last,
+                                       total):
+    m = kcopy.chunk_map(kind, shape, tile, 2)
+    assert m.chunk_bytes == kcopy.CHUNK_BYTES
+    assert m.per_tile == per_tile
+    assert m.per_run - (m.tiles - 1) * m.per_tile == per_last
+    assert m.chunks == total
+    chunks = _check_cover(m, kind, shape, tile, 2)
+    # one short chunk a tile at most: every chunk but a tile's last is full
+    ends = set(_tile_ends(kind, shape, tile, 2).tolist())
+    short = chunks[chunks[:, 1] < m.chunk_bytes]
+    assert all(int(o + b) in ends for o, b in short)
+
+
+def test_chunk_map_probe_counts_and_exact_tiles():
+    # copy3d tr 512 at the probe's shape: exactly 926 chunks a full tile
+    m = kcopy.chunk_map("3d", (11840, 463, 64), 512, 2)
+    assert m.tile_bytes == 30_343_168 == 926 * kcopy.CHUNK_BYTES
+    assert m.last_bytes == 64 * 463 * 64 * 2
+    # the kernel's arguments do not depend on the tile but through the
+    # tile's bytes: the chunk, and so the ring and its grid, stay the same
+    maps = [kcopy.chunk_map(k, s, t, 2) for k, s, t, *_ in PROBE_CHUNKS]
+    assert {m.chunk_bytes for m in maps} == {kcopy.CHUNK_BYTES}
+    assert {m.runs * m.run_bytes for m in maps} == {32 * 370 * 463 * 64 * 2}
+
+
+@pytest.mark.parametrize("kind,shape,tile,es,chunk", [
+    ("4d", (5, 9, 7, 8), 64, 2, kcopy.CHUNK_BYTES),   # smaller than a chunk
+    ("4d", (3, 37, 29, 16), 8, 2, 1024),              # ragged, many chunks
+    ("4d", (2, 64, 16, 64), 16, 2, 1024),             # tile = 2 chunks
+    ("4d", (2, 9, 1, 8), 4, 2, 48),                   # tile = 1 chunk + 16 B
+    ("3d", (111, 29, 16), 7, 2, 512),
+    ("3d", (128, 16, 64), 64, 2, 32768),              # tile = 4 chunks
+    ("3d", (5, 2, 8), 1, 4, 16),                      # 64-byte tiles
+    ("3d", (6145, 1, 8), 2049, 2, 32768),             # 1 chunk + 16 B
+])
+def test_chunk_map_covers_small_shapes(kind, shape, tile, es, chunk):
+    # the map's arithmetic at chunks smaller than the kernel's, so that
+    # small shapes still cut their tiles into many chunks
+    m = dataclasses.replace(kcopy.chunk_map(kind, shape, tile, es),
+                            chunk_bytes=chunk)
+    _check_cover(m, kind, shape, tile, es)
+    p = kcopy.plan(kind, shape, tile)
+    assert (m.tiles, m.runs) == p.grid
+
+
+def test_chunk_map_refuses_flat():
+    with pytest.raises(ValueError):
+        kcopy.chunk_map("flat", (2, 9, 112), 4, 2)
 
 
 def test_plan_refuses_bad_arguments():

@@ -220,3 +220,37 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
+
+
+def test_ptxas_report_is_read(tmp_path, monkeypatch):
+    assert ["-Xptxas", "-v"] == _build.NVCC_FLAGS[-2:]
+    lib = str(tmp_path / "libk.so")
+    assert _build.ptxas_usage(lib) == {}
+    # the report as build() keeps it: kernel names through cu++filt -p
+    logits = "void (anonymous namespace)::spatial_logits_kernel<__half, 5>"
+    ring = "(anonymous namespace)::ring_copy_kernel"
+    with open(lib + ".log", "w") as f:
+        f.write(f"""ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '{logits}' for 'sm_90a'
+ptxas info    : Function properties for {logits}
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers, 6144 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '{ring}' for 'sm_90a'
+ptxas info    : Function properties for {ring}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers, used 1 barriers, 424 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN2ns9kernel_abEv' for 'sm_90a'
+ptxas info    : Used 8 registers, 424 bytes cmem[0]
+""")
+    assert _build.ptxas_usage(lib) == {
+        "spatial_logits_kernel<__half, 5>": {
+            "registers": 72, "smem_bytes": 6144, "spill_bytes": 12},
+        "ring_copy_kernel": {"registers": 30, "smem_bytes": 0,
+                             "spill_bytes": 0},
+        # a name cu++filt did not demangle stays whole
+        "_ZN2ns9kernel_abEv": {"registers": 8, "smem_bytes": 0,
+                               "spill_bytes": 0}}
+    # without cu++filt beside nvcc the report is kept as ptxas wrote it
+    monkeypatch.setattr(_build, "nvcc", lambda: str(tmp_path / "nvcc"))
+    report = "Compiling entry function '_ZN2ns9kernel_abEv' for 'sm_90a'"
+    assert _build.demangle(report) == report

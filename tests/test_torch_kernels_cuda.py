@@ -236,3 +236,101 @@ def test_cuda_copy_wrappers_refuse_bad_inputs():
     buf = torch.zeros(x.numel() + 1, dtype=x.dtype, device="cuda")
     with pytest.raises(ValueError):          # out off a 16-byte boundary
         kcopy.copy4d(x, out=buf[1:].view(x.shape))
+
+
+# ---------------------------------------------------------------------------
+# the bulk ring of copy4d and copy3d: tiles at and around a chunk's edges,
+# more chunks than the grid's stages hold, and calls back to back on one
+# stream
+# ---------------------------------------------------------------------------
+
+def _ring_case(kind, shape, tile, seed=81):
+    from codon_tpu_torch import perf_copy_probe as probe
+    from codon_tpu_torch.kernels import copy as kcopy
+    fn = {"4d": kcopy.copy4d, "3d": kcopy.copy3d}[kind]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = probe.view(torch.rand(shape, generator=g, device="cuda")
+                   .to(torch.bfloat16), kind)
+    buf = torch.full((x.numel() + 2 * GUARD,), SENTINEL, dtype=x.dtype,
+                     device=x.device)
+    out = buf[GUARD:GUARD + x.numel()].view(x.shape)
+    n0 = fn.launches
+    assert fn(x, tile, out=out) is out
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    assert torch.equal(out.view(torch.int16), x.view(torch.int16))
+    assert bool((buf[:GUARD] == SENTINEL).all())
+    assert bool((buf[GUARD + x.numel():] == SENTINEL).all())
+    return kcopy.chunk_map(kind, x.shape, tile, x.element_size())
+
+
+@pytest.mark.parametrize("kind,shape,tile,per_tile,tile_bytes", [
+    # a tile of exactly k chunks
+    ("4d", (2, 64, 16, 64), 16, 1, 32768),
+    ("3d", (2, 64, 16, 64), 64, 4, 4 * 32768),
+    # k chunks and 16 bytes; the last tile 2 rows of 16 bytes
+    ("4d", (3, 2049, 1, 8), 2049, 2, 32768 + 16),
+    ("3d", (3, 2049, 1, 8), 6145, 4, 3 * 32768 + 16),
+    # the whole copy smaller than one chunk
+    ("4d", (5, 9, 7, 8), 4, 1, 4 * 112),
+    ("3d", (5, 9, 7, 8), 3, 1, 3 * 112),
+], ids=["4d-1chunk", "3d-4chunks", "4d-1chunk+16", "3d-3chunks+16",
+        "4d-subchunk", "3d-subchunk"])
+@needs_cuda
+def test_cuda_ring_tiles_at_chunk_edges(kind, shape, tile, per_tile,
+                                        tile_bytes):
+    m = _ring_case(kind, shape, tile)
+    assert (m.per_tile, m.tile_bytes) == (per_tile, tile_bytes)
+
+
+@pytest.mark.parametrize("kind,tile", [("4d", 64), ("3d", 512)])
+@needs_cuda
+def test_cuda_ring_more_chunks_than_grid_stages(kind, tile):
+    from codon_tpu_torch.kernels import copy as kcopy
+    m = _ring_case(kind, (4, 370, 463, 64), tile)
+    assert m.chunks > kcopy.ring_grid() * kcopy.STAGES
+
+
+@needs_cuda
+def test_cuda_ring_calls_back_to_back_on_one_stream():
+    from codon_tpu_torch.kernels import copy as kcopy
+    g = torch.Generator(device="cuda").manual_seed(82)
+    x, y = (torch.rand((4, 370, 463, 64), generator=g, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    out = torch.empty_like(x)
+    # two calls into the same out, no synchronisation between them
+    kcopy.copy4d(x, 64, out=out)
+    kcopy.copy3d(y.view(-1, 463, 64), 512, out=out.view(-1, 463, 64))
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int16), y.view(torch.int16))
+    # the second call reads what the first wrote
+    mid, last = torch.empty_like(x), torch.empty_like(x)
+    kcopy.copy3d(x.view(-1, 463, 64), 64, out=mid.view(-1, 463, 64))
+    kcopy.copy4d(mid, 128, out=last)
+    torch.cuda.synchronize()
+    assert torch.equal(last.view(torch.int16), x.view(torch.int16))
+
+
+@needs_cuda
+def test_cuda_ring_grid_and_refusals():
+    from codon_tpu_torch.kernels import _build
+    from codon_tpu_torch.kernels import copy as kcopy
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = kcopy.ring_grid()
+    assert grid >= sms and grid % sms == 0
+    assert kcopy.ring_grid() == grid             # the same on every call
+    x = torch.zeros((2, 9, 7, 8), dtype=torch.bfloat16, device="cuda")
+    out = torch.empty_like(x)
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    # the C entry points refuse tiles off 16 bytes, a last tile longer than
+    # a tile, and no tiles
+    for tile_bytes, last_bytes, tiles in ((1000, 1000, 2), (448, 464, 2),
+                                          (448, 448, 0)):
+        assert lib.codon_copy4d(x.data_ptr(), out.data_ptr(), tile_bytes,
+                                last_bytes, tiles, 2, stream) != 0
+        assert lib.codon_copy3d(x.data_ptr(), out.data_ptr(), tile_bytes,
+                                last_bytes, tiles, stream) != 0
+    # a refusal leaves no error behind for the next launch
+    x.uniform_()
+    assert torch.equal(kcopy.copy4d(x, 4), x)

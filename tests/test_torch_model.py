@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 from codon_tpu.checkpoint.native import load_npz as jax_load_npz
 from codon_tpu.core.params import BF16 as JBF16
+from codon_tpu.core.params import FP16 as JFP16
 from codon_tpu.core.params import FP32 as JFP32
 from codon_tpu.models import codon_net as jnet
 from codon_tpu.models.variants import get_variant as jax_variant
@@ -173,6 +174,28 @@ def test_bf16_forward_tracks_jax_bf16():
                     to_torch(c))
     assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
     np.testing.assert_allclose(got.numpy(), want, atol=0.05)
+
+
+def test_fp16_forward_tracks_jax_fp16():
+    """fp16 compute with float32 params, as the reference release runs
+    (`.half()`). At this input (x4_ship4.npz, 1x33x29, seed 6, one torch
+    thread on the CPU) the port's fp16 forward reads 1.46e-3 max |d| from
+    JAX's fp16 one, while an fp32 forward, the port's or JAX's, reads
+    2.80e-3 from it. So the bound, 2.2e-3 of a [0, 1] depth map, lies
+    between the two: a forward that quietly computed in fp32 fails it. And
+    the port's fp16 must stand at least 1e-3 from its own fp32 forward (it
+    reads 2.03e-3): fp16 rounding has to show."""
+    path = os.path.join(CKPT_DIR, "x4_ship4.npz")
+    d, c = _inputs(1, seed=6)
+    want = np.asarray(jax_variant("codon", JFP16).forward(
+        jax_load_npz(path), jnp.asarray(d), jnp.asarray(c)))
+    params = params_from_numpy(load_npz(path), "cpu")
+    got = get_variant("codon", tparams.FP16).forward(params, to_torch(d),
+                                                     to_torch(c))
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), want, atol=2.2e-3, rtol=0)
+    fp32 = get_variant("codon").forward(params, to_torch(d), to_torch(c))
+    assert float((got - fp32).abs().max()) > 1e-3
 
 
 @pytest.mark.parametrize("name", ["codon", "codon_x16", "codonet_x16_model",
