@@ -13,9 +13,12 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
      384 x 480 padded, a mask marking 370 x 463 valid, C = 64), at an odd
      shape (2 x 37 x 29, one image half masked) and at the TTA8 path's two
      shapes (16 x 384 x 480, and 16 x 480 x 384 transposed, the masks
-     flipped to each corner as the 4 flips place them), and times the kernel, the
-     plain version and, where one exists, a single PyTorch call computing
-     the same function, with CUDA events after a warmup;
+     flipped to each corner as the 4 flips place them), spatial_logits
+     bitwise; times the kernel, the plain version and, where one exists, a
+     single PyTorch call computing the same function, with CUDA events after
+     a warmup; and takes each kernel's device time a launch at the main and
+     TTA8 shapes from a CUDA graph of back-to-back calls (spatial_logits'
+     also at one output tile and at one image, and F.conv2d's too);
   4. runs `python -m codon_tpu_torch.cli eval` in-process, in bfloat16 at
      batch 4, with checkpoints/x4_ship4.npz, on a synthetic Middlebury-shaped
      scale directory (6 images of 463 x 370, 2 of 450 x 375, written with the
@@ -30,9 +33,8 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
      (32, 370, 463, 64) bf16 and at (3, 37, 29, 64), each writing into the
      middle of a sentinel-filled buffer whose sentinel must stay intact;
   7. times each copy kernel at both of its tiles, its plain version and
-     x.clone() at the probe's shape, with each kernel's design (copyflat
-     one block a TPU tile; copy4d and copy3d a ring of bulk copies over a
-     persistent grid), grid and chunk size;
+     x.clone() at the probe's shape, with each kernel's design (a ring of
+     bulk copies over a persistent grid), grid and chunk size;
   8. runs the probe's sweep (`perf_copy_probe.main`), its RESULT lines
      printed, with the copy kernels' launch counters set to 0 just before
      and read just after, and prints the measured copy ceiling as a share
@@ -74,6 +76,12 @@ CKPT2 = os.path.join(REPO, "checkpoints", "x4_holdout2.npz")
 # H100 SXM peaks (NVIDIA's data sheet), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12        # outside the tensor cores
+# fp32 instructions a second: an FMA counts as 2 flops, a lone multiply or
+# add is one instruction all the same
+FP32_INSNS_PER_S = FP32_FLOPS_PER_S / 2
+# spatial_logits rounds each of a tap's 2 multiplies and 2 adds on its own
+LOGIT_INSNS_PER_TAP = 4
+GRAPH_CALLS = 20            # back-to-back calls in a device-time graph
 
 # kernel-against-plain tolerances, |kernel - plain| <= atol + rtol * |plain|:
 # float32 as tests/test_kernels.py holds the Pallas kernels (only the order
@@ -251,12 +259,15 @@ def check_kernels(kc):
                      "mask": m is not None, "max_abs_err": max(err, err_f32),
                      "ok": ok and ok_f32})
             _, _, cmax, cmean = kc.cac_stats_plain(out, out_c, mask)
-            err, ok = max_err([kc.spatial_logits(cmax, cmean, sp_w)],
-                              [kc.spatial_logits_plain(cmax, cmean, sp_w)],
-                              atol, rtol)
+            got = kc.spatial_logits(cmax, cmean, sp_w)
+            want = kc.spatial_logits_plain(cmax, cmean, sp_w)
+            # the kernel rounds every multiply and add as the plain version
+            # does, in its order: the same bits
+            err, _ = max_err([got], [want], atol, rtol)
+            same = torch.equal(got, want)
             checks["spatial_logits"].append(
                 {"dtype": dname, "shape": list(shape), "max_abs_err": err,
-                 "ok": ok})
+                 "bitwise": same, "ok": same})
             err, ok = max_err(
                 kc.cac_apply(out, out_c, inp, inp_c, gate, logits),
                 kc.cac_apply_plain(out, out_c, inp, inp_c, gate, logits),
@@ -267,57 +278,134 @@ def check_kernels(kc):
     return checks
 
 
-def time_kernels(kc):
-    """Main-path shape, bfloat16 (the eval default): -> {name: timings}."""
+def graph_ms(fn, calls: int = GRAPH_CALLS, replays: int = 10) -> float:
+    """Device time of one call of `fn`: `calls` back-to-back calls captured
+    in a CUDA graph after a warm call (so the library is loaded and the
+    allocator has its blocks), the graph replayed after a warmup and timed
+    with CUDA events. No host time of a launch is in it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def bound(nbytes, flops):
+    """-> (least ms, "bytes" or "operations"): bytes over the memory rate
+    or fp32 operations over the fp32 rate, the larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kernel_rows(kc, shape, valid, seed):
+    """Each CAC kernel at the stage shape `shape`, bfloat16 (the eval
+    default): -> {name: {kern, plain, library (a call or None), shape (of
+    the kernel's first input), bound (ms, by), floor (fp32 instruction
+    floor ms, or None)}}."""
     import torch
     import torch.nn.functional as F
-    n, h, w, c = MAIN_SHAPE
+    n, h, w, c = shape
     dtype = torch.bfloat16
     (out, out_c, inp, inp_c), mask, gate, sp_w, logits = \
-        make_stage_inputs(MAIN_SHAPE, MAIN_VALID, dtype, seed=99)
+        make_stage_inputs(shape, valid, dtype, seed=seed)
     _, _, cmax, cmean = kc.cac_stats_plain(out, out_c, mask)
     s = out.element_size()
     nhw, nhwc = n * h * w, n * h * w * c
     k = sp_w.shape[0]
     stack = torch.stack([cmax, cmean], 1)                      # (N,2,H,W)
     w_conv = sp_w.permute(3, 2, 0, 1).to(dtype).contiguous()   # (1,2,k,k)
-
-    def bound(nbytes, flops):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS_PER_S * 1e3
-        return (max(t_bytes, t_ops),
-                "bytes" if t_bytes >= t_ops else "operations")
-
-    rows = {
-        "cac_stats": (
-            lambda: kc.cac_stats(out, out_c, mask),
-            lambda: kc.cac_stats_plain(out, out_c, mask),
-            None,
+    return {
+        "cac_stats": dict(
+            kern=lambda: kc.cac_stats(out, out_c, mask),
+            plain=lambda: kc.cac_stats_plain(out, out_c, mask),
+            library=None, shape=list(shape), floor=None,
             # read both towers and the mask; write two maps and 2 x (N,2C)
-            bound(2 * nhwc * s + nhw * s + 2 * nhw * s + 2 * n * 2 * c * 4,
-                  # per element: channel sum + max, pixel sum + max
-                  2 * nhwc * 4)),
-        "spatial_logits": (
-            lambda: kc.spatial_logits(cmax, cmean, sp_w),
-            lambda: kc.spatial_logits_plain(cmax, cmean, sp_w),
-            lambda: F.conv2d(stack, w_conv, padding=k // 2),
-            bound(3 * nhw * s + 2 * k * k * 4, nhw * 4 * k * k)),
-        "cac_apply": (
-            lambda: kc.cac_apply(out, out_c, inp, inp_c, gate, logits),
-            lambda: kc.cac_apply_plain(out, out_c, inp, inp_c, gate, logits),
-            None,
+            bound=bound(2 * nhwc * s + nhw * s + 2 * nhw * s
+                        + 2 * n * 2 * c * 4,
+                        # per element: channel sum + max, pixel sum + max
+                        2 * nhwc * 4)),
+        "spatial_logits": dict(
+            kern=lambda: kc.spatial_logits(cmax, cmean, sp_w),
+            plain=lambda: kc.spatial_logits_plain(cmax, cmean, sp_w),
+            library=lambda: F.conv2d(stack, w_conv, padding=k // 2),
+            shape=[n, h, w],
+            bound=bound(3 * nhw * s + 2 * k * k * 4, nhw * 4 * k * k),
+            floor=nhw * k * k * LOGIT_INSNS_PER_TAP / FP32_INSNS_PER_S * 1e3),
+        "cac_apply": dict(
+            kern=lambda: kc.cac_apply(out, out_c, inp, inp_c, gate, logits),
+            plain=lambda: kc.cac_apply_plain(out, out_c, inp, inp_c, gate,
+                                             logits),
+            library=None, shape=list(shape), floor=None,
             # 4 tower reads, 2 writes, the logits and the gate
-            bound(6 * nhwc * s + nhw * s + n * c * 4,
-                  # per element: gate x sigmoid, 2 multiplies, 2 adds
-                  5 * nhwc)),
+            bound=bound(6 * nhwc * s + nhw * s + n * c * 4,
+                        # per element: gate x sigmoid, 2 multiplies, 2 adds
+                        5 * nhwc)),
     }
+
+
+def time_kernels(kc):
+    """bfloat16 (the eval default). At the main-path shape: the wrapper's
+    time over back-to-back calls, the plain version's and the library
+    call's. At the main and both TTA8 shapes: the device time a launch
+    (`graph_ms`), the library call's too. -> {name: timings}."""
+    import torch
     out_rows = {}
-    for name, (kern, plain, lib, (bound_ms, bound_by)) in rows.items():
-        out_rows[name] = {
-            "ms": time_ms(kern), "plain_ms": time_ms(plain),
-            "library_ms": time_ms(lib) if lib is not None else None,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    for shape, valid in (STAGE_CASES[0],) + STAGE_CASES[2:]:
+        rows = kernel_rows(kc, shape, valid, seed=99)
+        for name, r in rows.items():
+            bound_ms, bound_by = r["bound"]
+            lib = r["library"]
+            if shape == MAIN_SHAPE:
+                out_rows[name] = {
+                    "ms": time_ms(r["kern"]), "plain_ms": time_ms(r["plain"]),
+                    "library_ms": time_ms(lib) if lib is not None else None,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "by_shape": []}
+            by = {"shape": r["shape"], "device_ms": graph_ms(r["kern"]),
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "library_ms": None, "library_device_ms": None}
+            if r["floor"] is not None:
+                by["insn_floor_ms"] = r["floor"]
+            if lib is not None:
+                by["library_ms"] = time_ms(lib)
+                by["library_device_ms"] = graph_ms(lib)
+            out_rows[name]["by_shape"].append(by)
+        del rows
+        torch.cuda.empty_cache()
+    for row in out_rows.values():
+        row["device_ms"] = row["by_shape"][0]["device_ms"]
+    out_rows["spatial_logits"]["small"] = logits_small(kc)
     return out_rows
+
+
+def logits_small(kc):
+    """spatial_logits' device time a launch where there is almost nothing
+    to compute: one 64 x 32 output tile (a launch, one block's staging and
+    drain) and one 384 x 480 image (one block on each of 72 SMs). ->
+    [{shape, device_ms}]."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    rows = []
+    for shape in ((1, 32, 64), (1, 384, 480)):
+        cmax, cmean = (torch.randn(shape, generator=g, device=DEVICE)
+                       .to(torch.bfloat16) for _ in range(2))
+        sp_w = torch.randn((5, 5, 2, 1), generator=g, device=DEVICE)
+        rows.append({"shape": list(shape), "device_ms": graph_ms(
+            lambda: kc.spatial_logits(cmax, cmean, sp_w))})
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -484,11 +572,7 @@ def check_copies(kcopy, probe):
 
 def copy_layout(kcopy, kind, x, tile):
     """How a copy kernel cuts its view x at `tile`: -> {design, grid,
-    chunk_bytes, chunks}; copyflat's grid is the TPU's, one block a tile."""
-    if kind == "flat":
-        return {"design": "per_tile",
-                "grid": kcopy.plan(kind, x.shape, tile).blocks,
-                "chunk_bytes": None, "chunks": None}
+    chunk_bytes, chunks}."""
     m = kcopy.chunk_map(kind, x.shape, tile, x.element_size())
     return {"design": "bulk_ring", "grid": kcopy.ring_grid(),
             "chunk_bytes": m.chunk_bytes, "chunks": m.chunks}
@@ -527,9 +611,7 @@ def time_copies(kcopy, probe):
 
 
 def layout_text(r) -> str:
-    if r["design"] == "per_tile":
-        return f"per_tile, {r['grid']} blocks"
-    return (f"bulk_ring, grid {r['grid']}, {r['chunks']} chunks of "
+    return (f"{r['design']}, grid {r['grid']}, {r['chunks']} chunks of "
             f"{r['chunk_bytes']} B")
 
 
@@ -761,11 +843,30 @@ def main() -> int:
         for r in rows:
             say(f"check {name} {r['dtype']} {tuple(r['shape'])}"
                 + (f" mask={r['mask']}" if "mask" in r else "")
+                + (f" bitwise {r['bitwise']}" if "bitwise" in r else "")
                 + f": max_abs_err {r['max_abs_err']:.3e} "
                   f"{'ok' if r['ok'] else 'FAIL'}")
     bad = [(n, r) for n, rows in checks.items() for r in rows if not r["ok"]]
     need(not bad, f"{len(bad)} kernel checks out of tolerance: {bad}")
     timings = time_kernels(kc)
+    for name, t in timings.items():
+        say(f"time {name} {tuple(MAIN_SHAPE)}: wrapper {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms"
+            + (f", library {t['library_ms']:.4f} ms"
+               if t["library_ms"] is not None else ""))
+        for r in t["by_shape"]:
+            say(f"device {name} {tuple(r['shape'])}: "
+                f"{r['device_ms'] * 1e3:.2f} us a launch ({GRAPH_CALLS} "
+                f"calls in a CUDA graph); bound {r['bound_ms'] * 1e3:.2f} us "
+                f"by {r['bound_by']}"
+                + (f", fp32 instruction floor {r['insn_floor_ms'] * 1e3:.2f} "
+                   f"us" if "insn_floor_ms" in r else "")
+                + (f"; library {r['library_device_ms'] * 1e3:.2f} us a "
+                   f"call in a graph, {r['library_ms'] * 1e3:.2f} us back to "
+                   f"back" if r["library_ms"] is not None else ""))
+    for r in timings["spatial_logits"]["small"]:
+        say(f"device spatial_logits {tuple(r['shape'])}: "
+            f"{r['device_ms'] * 1e3:.2f} us a launch")
     say(f"kernel checks and timings: {time.time() - t0:.1f} s")
 
     # 4. the main path
@@ -867,7 +968,9 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in checks[name]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "by_shape": t["by_shape"], **({"small": t["small"]}
+                                         if "small" in t else {}),
             "shape": list(MAIN_SHAPE), "dtype": "bfloat16"})
     for name, kind, tiles in COPY_KERNELS:
         t = copy_times[name]

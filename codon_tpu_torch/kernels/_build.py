@@ -1,10 +1,11 @@
 """Build the CUDA kernels with plain nvcc and bind them with ctypes.
 
-`load()` compiles `csrc/*.cu` at first use into one shared library under
-`kernels/_build/` (listed in .gitignore), named by a hash of the sources and
-the flags, so a changed source rebuilds and an unchanged one loads the
-library already built. The sources have a plain C interface and include no
-PyTorch header: nvcc takes seconds, not the minutes that
+`load()` compiles `csrc/*.cu` at first use, one nvcc a source, all started
+together, and links them into one shared library under `kernels/_build/`
+(listed in .gitignore), named by a hash of the sources and the flags, so a
+changed source rebuilds and an unchanged one loads the library already
+built. The sources have a plain C interface and include no PyTorch
+header: nvcc takes seconds, not the minutes that
 `torch.utils.cpp_extension.load` takes for a source built against torch.
 ptxas reports each kernel's registers, shared memory and spills (`-Xptxas
 -v`); the report is kept beside the library (`<library>.log`), its kernel
@@ -25,8 +26,9 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,7 +42,7 @@ _SIGNATURES = {
     "codon_cac_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _P],
     "codon_copy4d": [_P, _P, _L, _L, _L, _L, _P],
-    "codon_copyflat": [_P, _P, _I, _I, _L, _I, _I, _P],
+    "codon_copyflat": [_P, _P, _L, _L, _L, _L, _P],
     "codon_copy3d": [_P, _P, _L, _L, _L, _P],
     "codon_copy_ring_grid": [ctypes.POINTER(_I)],
 }
@@ -83,25 +85,44 @@ def build() -> tuple:
     if os.path.exists(path):
         return path, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # compile to a private name, then rename: a concurrent build of the
-    # same sources never loads a half-written file
+    # compile and link to private names, then rename: a concurrent build of
+    # the same sources never loads a half-written file
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[p for p in _sources() if p.endswith(".cu")]]
+    jobs = []
     t0 = time.time()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    for src in (p for p in _sources() if p.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        # every compile waited for before a failure is reported
+        runs = []
+        for cmd, _, proc in jobs:
+            out = "".join(proc.communicate())
+            runs.append((cmd, proc.returncode, out))
+        cmd = [nvcc(), *ARCH, "-shared", "-o", tmp, *objs]
+        if all(rc == 0 for _, rc, _ in runs):
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            runs.append((cmd, res.returncode, res.stdout + res.stderr))
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     dt = time.time() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    for cmd, rc, out in runs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+    said = "".join(out for _, _, out in runs)
     with open(f"{path}.log", "w") as f:
-        f.write(demangle(res.stdout + res.stderr))
+        f.write(demangle(said))
     # ptxas' per-kernel report goes to the log; anything else is shown
-    said = [ln for ln in (res.stdout + res.stderr).splitlines()
-            if ln.strip() and not ln.startswith("ptxas info")
-            and not re.match(r"\s+\d+ bytes stack frame", ln)]
-    if said:
-        print("\n".join(said), file=sys.stderr)
+    other = [ln for ln in said.splitlines()
+             if ln.strip() and not ln.startswith("ptxas info")
+             and not re.match(r"\s+\d+ bytes stack frame", ln)]
+    if other:
+        print("\n".join(other), file=sys.stderr)
     os.replace(tmp, path)
     print(f"codon_tpu_torch: built {os.path.basename(path)} with nvcc in "
           f"{dt:.1f} s", file=sys.stderr)

@@ -10,13 +10,13 @@ tiles as the TPU kernel (`plan`):
   copy3d(x, tr)    x (R, W, C):    (tr, W, C) tiles over R = B*H rows,
                                    grid (ceil(R/tr),)
 
-Two designs. copyflat launches the TPU's grid, one thread block a tile.
-copy4d and copy3d cut every tile into bulk chunks of `CHUNK_BYTES` (the
-last chunk of a tile shorter; `chunk_map`) and launch a persistent grid,
-as many blocks as the ring's shared memory lets an SM hold on every SM
-(`ring_grid`), whatever the tile; each block moves its chunks through a
-ring of `STAGES` shared-memory stages with Hopper's bulk asynchronous
-copies.
+One design for all three. Each cuts every tile into bulk chunks of
+`CHUNK_BYTES` (the last chunk of a tile shorter; `chunk_map`) and launches
+a persistent grid, as many blocks as the ring's shared memory lets an SM
+hold on every SM (`ring_grid`), whatever the tile; each block moves its
+chunks through a ring of `STAGES` shared-memory stages with Hopper's bulk
+asynchronous copies. A copyflat tile is the byte range of the copy4d tile
+of the same rows, so the two pass the same chunk map.
 
 The CUDA source is `csrc/copy.cu`. Each wrapper takes the plain version
 when its tensor lies on the CPU, and on a CUDA tensor launches the kernel or
@@ -36,9 +36,9 @@ import torch
 
 from codon_tpu_torch.kernels import _build
 
-_VECTOR = 16                # bytes a thread moves at a time
+_VECTOR = 16                # bulk copies move whole 16-byte vectors
 _NDIM = {"4d": 4, "flat": 3, "3d": 3}
-# the ring of copy4d and copy3d, fixed in csrc/copy.cu (kChunk, kStages)
+# the ring of the three copies, fixed in csrc/copy.cu (kChunk, kStages)
 # and mirrored here: bytes a bulk chunk, shared-memory stages a block (at
 # 4 x 32 KB an H100 SM holds one block)
 CHUNK_BYTES = 32 * 1024
@@ -50,18 +50,11 @@ RING_BYTES = STAGES * CHUNK_BYTES + 8 * STAGES   # stages and their mbarriers
 class CopyPlan:
     """How the TPU kernel cuts one copy into tiles: its grid (x, y), the rows
     of a tile, and the rows of the last tile of an image (4d, flat) or of
-    the whole row stack (3d). copyflat launches this grid as it is."""
+    the whole row stack (3d). The kernels cut these tiles into chunks
+    (`chunk_map`) and launch a grid of their own."""
     grid: tuple
     tile_rows: int
     last_rows: int
-
-    @property
-    def blocks(self) -> int:
-        return self.grid[0] * self.grid[1]
-
-    @property
-    def ragged(self) -> bool:
-        return self.last_rows != self.tile_rows
 
 
 def plan(kind: str, shape, tile: int) -> CopyPlan:
@@ -85,9 +78,9 @@ def plan(kind: str, shape, tile: int) -> CopyPlan:
 
 @dataclasses.dataclass(frozen=True)
 class ChunkMap:
-    """How copy4d and copy3d cut a copy into bulk chunks, in the kernel's
-    own arguments: `runs` runs (the images of the 4d view, one for the 3d
-    view) of `tiles` TPU tiles, each `tile_bytes` long but the last of a
+    """How the copies cut a copy into bulk chunks, in the kernel's own
+    arguments: `runs` runs (the images of the 4d and flat views, one for
+    the 3d view) of `tiles` TPU tiles, each `tile_bytes` long but the last of a
     run, `last_bytes` long; every tile cut into chunks of `chunk_bytes`
     (the kernel's, CHUNK_BYTES), the last chunk of a tile shorter. No grid:
     the kernel's grid depends on the card and the ring, not on the tile."""
@@ -125,21 +118,24 @@ class ChunkMap:
                 min(self.chunk_bytes, tb - start))
 
 
+def _row_elements(kind: str, shape) -> int:
+    """Elements of one row of a tile: W*C in every view."""
+    return math.prod(shape[1 if kind == "3d" else 2:])
+
+
 def chunk_map(kind: str, shape, tile: int, element_size: int) -> ChunkMap:
-    """The chunks of copy4d ("4d") or copy3d ("3d") over a contiguous
-    `shape` of `element_size`-byte elements, cut from `plan`'s tiles."""
-    if kind not in ("4d", "3d"):
-        raise ValueError(f"only copy4d and copy3d copy by chunks, got "
-                         f"{kind!r}")
+    """The chunks of copy4d ("4d"), copyflat ("flat") or copy3d ("3d")
+    over a contiguous `shape` of `element_size`-byte elements, cut from
+    `plan`'s tiles."""
     p = plan(kind, shape, tile)
-    row = math.prod(shape[2 if kind == "4d" else 1:]) * element_size
+    row = _row_elements(kind, shape) * element_size
     return ChunkMap(tile_bytes=p.tile_rows * row, last_bytes=p.last_rows * row,
                     tiles=p.grid[0], runs=p.grid[1])
 
 
 def ring_grid() -> int:
-    """Blocks of the persistent grid copy4d and copy3d launch on the current
-    CUDA device: the blocks of the ring an SM holds, times the SMs."""
+    """Blocks of the persistent grid the copies launch on the current CUDA
+    device: the blocks of the ring an SM holds, times the SMs."""
     grid = ctypes.c_int(0)
     _build.check(_build.load().codon_copy_ring_grid(ctypes.byref(grid)),
                  "copy ring grid")
@@ -180,22 +176,17 @@ def _launch(kind, fn, x, out, tile):
         if t.data_ptr() % _VECTOR:
             raise ValueError(f"copy {kind}: {what} must start on a "
                              f"{_VECTOR}-byte boundary")
-    # a row: W*C elements (the flat view's last axis is already W*C); a
-    # tile is whole rows, so whole 16-byte vectors too
+    # a tile is whole rows, so whole 16-byte vectors too
     es = x.element_size()
-    row_bytes = math.prod(x.shape[1 if kind == "3d" else 2:]) * es
+    row_bytes = _row_elements(kind, x.shape) * es
     if row_bytes % _VECTOR:
         raise ValueError(f"copy {kind}: a row of {row_bytes} bytes is not a "
                          f"multiple of {_VECTOR}")
     if x.numel() == 0:
         return out
-    if kind == "flat":
-        args = (*x.shape[:2], row_bytes, tile,
-                plan(kind, x.shape, tile).grid[0])
-    else:
-        m = chunk_map(kind, x.shape, tile, es)
-        args = ((m.tile_bytes, m.last_bytes, m.tiles, m.runs)
-                if kind == "4d" else (m.tile_bytes, m.last_bytes, m.tiles))
+    m = chunk_map(kind, x.shape, tile, es)
+    args = ((m.tile_bytes, m.last_bytes, m.tiles) if kind == "3d"
+            else (m.tile_bytes, m.last_bytes, m.tiles, m.runs))
     lib = _build.load()
     with torch.cuda.device(x.device):
         rc = getattr(lib, f"codon_copy{kind}")(
@@ -213,7 +204,8 @@ def copy4d(x: torch.Tensor, th: int = 64, out=None) -> torch.Tensor:
 
 
 def copyflat(x: torch.Tensor, th: int = 64, out=None) -> torch.Tensor:
-    """x (B, H, W*C) -> a copy, one block per (1, th, W*C) tile."""
+    """x (B, H, W*C) -> a copy, its (1, th, W*C) tiles cut into bulk
+    chunks over the persistent grid."""
     return _launch("flat", copyflat, x, out, th)
 
 

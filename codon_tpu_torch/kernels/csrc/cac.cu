@@ -231,87 +231,208 @@ cudaError_t launch_stats(const void* x, const void* y, const void* mask,
 // (codon_tpu/kernels/cac.py:188-207, pallas_call at :193): the k x k SAME
 // zero-padded 2 -> 1 stencil over the pooled max (weight channel 0) and
 // mean (channel 1) maps, float32 accumulation, output in the activation
-// type.
+// type. Taps are summed in the TPU kernel's order (dy outer, dx inner),
+// each as acc + (wa * a + wb * b) with every multiply and add rounded on its
+// own (no contraction into FMA), so the plain PyTorch version gives the
+// same bits in every dtype.
 //
-// Bound: bytes, 3 maps of (N, H, W) = 4.4 MB at the main-path shape
-// (~1.3 us at 3.35 TB/s; 100 flops a pixel is ~1.1 us at 67 TFLOP/s fp32),
-// so in practice one launch's latency bounds it. Design: one block per
-// 32 x 8 output tile; both planes of the tile plus a k/2 halo staged once in
-// shared memory as float32, so each map element is read from device memory
-// about once; the 2 k^2 weights, the same for every thread, read through the
-// read-only cache into registers; k a template parameter, so the tap loops
-// unroll. Taps are summed in the TPU kernel's order with explicitly rounded
-// multiplies and adds (no contraction into FMA), so the plain PyTorch version
-// gives the same bits.
+// Bound: bytes, 3 maps of (N, H, W) = 4.4 MB at the main-path shape, ~1.3
+// us at 3.35 TB/s. Above it sits the rounding rule's instruction floor: 4
+// fp32 instructions a tap, 100 an output, ~2.2 us for 737,280 outputs at
+// the card's ~33.5 T fp32 instructions/s. So the design spends as few
+// other instructions as it can:
+// - a block of 32 x 8 threads owns a 64-wide x 32-tall output tile (384
+//   blocks at 4 x 384 x 480, under 3 an SM, one wave); each thread
+//   computes a 2-wide x 4-tall block of outputs, sliding an 8-row window
+//   of 6 columns of each plane through registers: 48 shared-memory reads
+//   of 8 bytes for 8 outputs, where one output a thread read 50 floats.
+//   Window row r gives output row o its taps of dy = r - o, so each output
+//   still receives dy in rising order and, within a row, dx in rising
+//   order. A warp reads 64 neighbouring floats of a staged row: no bank
+//   conflicts;
+// - the 2 k^2 weights are read from device memory once a block into
+//   shared memory; every thread of a block reads the same ones, so ptxas
+//   keeps them in uniform registers that the multiplies read directly, and
+//   a thread needs 64 registers, 4 blocks (32 warps) an SM;
+// - both planes of the tile and a k/2 halo are staged once in shared
+//   memory as float32, by 16-byte vectors where a row is whole vectors (W
+//   a multiple of 16 / sizeof(T) and both maps 16-byte aligned; the staged
+//   columns widened to whole vectors, those outside the image zero), every
+//   load of a thread issued before the first is converted, and element by
+//   element otherwise, in the same kernel.
+// k is a template parameter, so every loop over taps, window rows and
+// outputs unrolls.
 // ---------------------------------------------------------------------------
 
-constexpr int kLogitTX = 32;
-constexpr int kLogitTY = 8;
+constexpr int kLogitTX = 32;          // threads across
+constexpr int kLogitTY = 8;           // threads down
+constexpr int kLogitCols = 2;         // output columns a thread
+constexpr int kLogitRows = 4;         // output rows a thread
+constexpr int kLogitThreads = kLogitTX * kLogitTY;
+constexpr int kLogitTileW = kLogitTX * kLogitCols;   // 64 output columns
+constexpr int kLogitTileH = kLogitTY * kLogitRows;   // 32 output rows
+
+// 16 bytes of T -> 16 / sizeof(T) floats
+__device__ __forceinline__ void unpack16(const uint4& r, float* f, float) {
+  f[0] = __uint_as_float(r.x);
+  f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z);
+  f[3] = __uint_as_float(r.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& r, float* f,
+                                         __nv_bfloat16) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {    // a bf16 is the high half of its float
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void unpack16(const uint4& r, float* f, __half) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
 
 template <typename T, int K>
-__global__ void __launch_bounds__(kLogitTX * kLogitTY)
+__global__ void __launch_bounds__(kLogitThreads, 4)
 spatial_logits_kernel(const T* __restrict__ cmax, const T* __restrict__ cmean,
                       const float* __restrict__ wgt, T* __restrict__ out,
-                      int H, int W) {
+                      int H, int W, bool vec) {
   constexpr int R = K / 2;
-  constexpr int TW = kLogitTX + 2 * R;
-  constexpr int TH = kLogitTY + 2 * R;
-  __shared__ float sa[TH][TW];
-  __shared__ float sb[TH][TW];
+  constexpr int V = Pack<T>::N;               // elements a 16-byte vector
+  constexpr int SH = kLogitTileH + 2 * R;     // staged rows
+  constexpr int SW = kLogitTileW + 2 * R;     // staged columns the taps read
+  // staged columns [x0 - V, x0 + 64 + V): whole vectors around the taps'
+  // [x0 - R, x0 + 64 + R); staged column C0 holds image column x0 - R
+  constexpr int SV = kLogitTileW + 2 * V;
+  constexpr int C0 = V - R;
+  constexpr int WIN = kLogitCols + K - 1;     // window columns a thread
+  static_assert(R <= V, "the halo fits in one vector a side");
+  __shared__ __align__(16) float st[2][SH][SV];
+  __shared__ __align__(16) float sw[2 * K * K];
+
+  const int x0 = blockIdx.x * kLogitTileW;
+  const int y0 = blockIdx.y * kLogitTileH;
+  const int tid = threadIdx.y * kLogitTX + threadIdx.x;
+  const long long plane = (long long)blockIdx.z * H * W;
+  const T* const ma = cmax + plane;          // the two maps of image z
+  const T* const mb = cmean + plane;
 
   // weight (dy, dx, channel): channel 0 multiplies the max map, 1 the mean
+  const float wv = tid < 2 * K * K ? wgt[tid] : 0.f;
+  if (vec) {
+    // item i is vector i % NV of staged row i / NV (the max map's SH rows,
+    // then the mean map's), which is also where its floats go in st
+    constexpr int NV = SV / V;
+    constexpr int ITEMS = 2 * SH * NV;
+    constexpr int PER = (ITEMS + kLogitThreads - 1) / kLogitThreads;
+    uint4 raw[PER];
+    // every load of the thread in flight before the first is used
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int i = tid + k * kLogitThreads;
+      const int row = i / NV;
+      const int p = row >= SH;
+      const int gy = y0 - R + row - p * SH, gx = x0 - V + (i - row * NV) * V;
+      raw[k] = make_uint4(0u, 0u, 0u, 0u);   // SAME zero padding
+      // W is whole vectors: a vector lies wholly inside or outside
+      if (i < ITEMS && (unsigned)gy < (unsigned)H && (unsigned)gx < (unsigned)W)
+        raw[k] = *reinterpret_cast<const uint4*>((p ? mb : ma) + gy * W + gx);
+    }
+    float* const flat = &st[0][0][0];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int i = tid + k * kLogitThreads;
+      if (i < ITEMS) {
+        float f[V];
+        unpack16(raw[k], f, T());
+#pragma unroll
+        for (int q = 0; q < V / 4; ++q)
+          reinterpret_cast<float4*>(flat + i * V)[q] = make_float4(
+              f[4 * q], f[4 * q + 1], f[4 * q + 2], f[4 * q + 3]);
+      }
+    }
+  } else {
+    for (int i = tid; i < 2 * SH * SW; i += kLogitThreads) {
+      const int p = i / (SH * SW);
+      const int rem = i - p * (SH * SW);
+      const int ly = rem / SW, lx = rem - ly * SW;
+      const int gy = y0 - R + ly, gx = x0 - R + lx;
+      float v = 0.f;                          // SAME zero padding
+      if ((unsigned)gy < (unsigned)H && (unsigned)gx < (unsigned)W)
+        v = Cvt<T>::to_f((p ? mb : ma)[gy * W + gx]);
+      st[p][ly][C0 + lx] = v;
+    }
+  }
+  if (tid < 2 * K * K) sw[tid] = wv;
+  __syncthreads();
+
   float wa[K * K], wb[K * K];
 #pragma unroll
-  for (int i = 0; i < K * K; ++i) {
-    wa[i] = __ldg(wgt + 2 * i);
-    wb[i] = __ldg(wgt + 2 * i + 1);
+  for (int t = 0; t < K * K; ++t) {
+    wa[t] = sw[2 * t];
+    wb[t] = sw[2 * t + 1];
   }
-
-  const int n = blockIdx.z;
-  const int x0 = blockIdx.x * kLogitTX;
-  const int y0 = blockIdx.y * kLogitTY;
-  const int tid = threadIdx.y * kLogitTX + threadIdx.x;
-  for (int i = tid; i < TW * TH; i += kLogitTX * kLogitTY) {
-    const int ly = i / TW, lx = i % TW;
-    const int gy = y0 + ly - R, gx = x0 + lx - R;
-    float va = 0.f, vb = 0.f;       // SAME zero padding outside the image
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      const long long idx = ((long long)n * H + gy) * W + gx;
-      va = Cvt<T>::to_f(cmax[idx]);
-      vb = Cvt<T>::to_f(cmean[idx]);
-    }
-    sa[ly][lx] = va;
-    sb[ly][lx] = vb;
-  }
-  __syncthreads();
-  const int ox = x0 + threadIdx.x, oy = y0 + threadIdx.y;
-  if (ox >= W || oy >= H) return;
-  float acc = 0.f;
+  const int row0 = threadIdx.y * kLogitRows;  // the thread's first output row
+  const int col0 = threadIdx.x * kLogitCols;  // and column, in the tile
+  float acc[kLogitCols][kLogitRows];
 #pragma unroll
-  for (int dy = 0; dy < K; ++dy) {
+  for (int c = 0; c < kLogitCols; ++c)
+#pragma unroll
+    for (int o = 0; o < kLogitRows; ++o) acc[c][o] = 0.f;
+#pragma unroll
+  for (int r = 0; r < kLogitRows + 2 * R; ++r) {
+    float a[WIN], b[WIN];
+#pragma unroll
+    for (int x = 0; x < WIN; ++x) {
+      a[x] = st[0][row0 + r][C0 + col0 + x];
+      b[x] = st[1][row0 + r][C0 + col0 + x];
+    }
 #pragma unroll
     for (int dx = 0; dx < K; ++dx) {
-      const float ta = __fmul_rn(wa[dy * K + dx], sa[threadIdx.y + dy][threadIdx.x + dx]);
-      const float tb = __fmul_rn(wb[dy * K + dx], sb[threadIdx.y + dy][threadIdx.x + dx]);
-      acc = __fadd_rn(acc, __fadd_rn(ta, tb));
+#pragma unroll
+      for (int c = 0; c < kLogitCols; ++c) {
+#pragma unroll
+        for (int o = 0; o < kLogitRows; ++o) {
+          const int dy = r - o;
+          if (dy >= 0 && dy < K) {
+            const float ta = __fmul_rn(wa[dy * K + dx], a[c + dx]);
+            const float tb = __fmul_rn(wb[dy * K + dx], b[c + dx]);
+            acc[c][o] = __fadd_rn(acc[c][o], __fadd_rn(ta, tb));
+          }
+        }
+      }
     }
   }
-  out[((long long)n * H + oy) * W + ox] = Cvt<T>::from_f(acc);
+  // the thread's outputs, (c, o) at o * W + c from its first
+  T* const dst = out + plane + (long long)(y0 + row0) * W + x0 + col0;
+  const int cols = W - x0 - col0, rows = H - y0 - row0;
+#pragma unroll
+  for (int c = 0; c < kLogitCols; ++c)
+#pragma unroll
+    for (int o = 0; o < kLogitRows; ++o)
+      if (c < cols && o < rows) dst[o * W + c] = Cvt<T>::from_f(acc[c][o]);
 }
 
 template <typename T>
 cudaError_t launch_logits(const void* cmax, const void* cmean, const void* wgt,
                           void* out, int n, int h, int w, int k,
                           cudaStream_t st) {
-  const dim3 grid((w + kLogitTX - 1) / kLogitTX, (h + kLogitTY - 1) / kLogitTY, n);
-  const dim3 block(kLogitTX, kLogitTY);
-  const T* a = static_cast<const T*>(cmax);
-  const T* b = static_cast<const T*>(cmean);
-  const float* wt = static_cast<const float*>(wgt);
-  T* o = static_cast<T*>(out);
   // every variant's spatial gate is 5x5
   if (k != 5) return cudaErrorInvalidValue;
-  spatial_logits_kernel<T, 5><<<grid, block, 0, st>>>(a, b, wt, o, h, w);
+  const bool vec = w % Pack<T>::N == 0 &&
+                   reinterpret_cast<uintptr_t>(cmax) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(cmean) % 16 == 0;
+  const dim3 grid((w + kLogitTileW - 1) / kLogitTileW,
+                  (h + kLogitTileH - 1) / kLogitTileH, n);
+  spatial_logits_kernel<T, 5><<<grid, dim3(kLogitTX, kLogitTY), 0, st>>>(
+      static_cast<const T*>(cmax), static_cast<const T*>(cmean),
+      static_cast<const float*>(wgt), static_cast<T*>(out), h, w, vec);
   return cudaGetLastError();
 }
 

@@ -17,10 +17,9 @@
 // Bound: bytes. The probe's shape (32, 370, 463, 64) bf16 is 701.69 MB read
 // and 701.69 MB written, 0.419 ms at 3.35 TB/s (H100 SXM).
 //
-// Two designs, on purpose side by side: copyflat keeps one thread block a
-// TPU tile (copy_vectors below), so the tile decides how many SMs move
-// bytes; copy4d and copy3d are a ring of bulk copies over a persistent grid
-// (ring_copy_kernel), so it does not. The wrapper
+// One design for all three: a ring of bulk copies over a persistent grid
+// (ring_copy_kernel), so the tile does not decide how many SMs move bytes;
+// the three entry points differ only in the chunk map they pass. The wrapper
 // (codon_tpu_torch/kernels/copy.py) checks that rows are a multiple of 16
 // bytes and that both pointers are 16-byte aligned, and passes PyTorch's
 // current stream.
@@ -33,52 +32,14 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// copyflat: one block a TPU tile. A block of kThreads threads walks its
-// range in 16-byte vectors, neighbouring threads on neighbouring addresses;
-// each thread issues kUnroll loads before it stores, so a block keeps
-// kThreads * kUnroll * 16 B = 32 KB in flight. The grid is the TPU's:
-// 192 blocks for th = 64 on 132 SMs, 1,504 for th = 8.
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;
-constexpr int kUnroll = 8;
-
-// Copy n 16-byte vectors from src to dst with the whole block.
-__device__ __forceinline__ void copy_vectors(const uint4* __restrict__ src,
-                                             uint4* __restrict__ dst,
-                                             long long n) {
-  long long i = threadIdx.x;
-  const long long step = (long long)kThreads * kUnroll;
-  for (; i + (long long)(kUnroll - 1) * kThreads < n; i += step) {
-    uint4 v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) v[u] = src[i + (long long)u * kThreads];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) dst[i + (long long)u * kThreads] = v[u];
-  }
-  for (; i < n; i += kThreads) dst[i] = src[i];
-}
-
-// flat: the (B, H, W*C) view; blockIdx.y = image, blockIdx.x = tile of th
-// rows of row_vecs vectors.
-__global__ void __launch_bounds__(kThreads)
-copyflat_kernel(const uint4* __restrict__ src, uint4* __restrict__ dst, int H,
-                long long row_vecs, int th) {
-  const int r0 = blockIdx.x * th;
-  const int rows = min(th, H - r0);
-  if (rows <= 0) return;
-  const long long off = ((long long)blockIdx.y * H + r0) * row_vecs;
-  copy_vectors(src + off, dst + off, rows * row_vecs);
-}
-
-// ---------------------------------------------------------------------------
-// copy4d, copy3d: a ring of bulk copies over a persistent grid.
+// A ring of bulk copies over a persistent grid.
 //
 // The TPU tile stays the unit of the plan: `images` runs of `tiles` tiles,
-// each tile_bytes long but the last of a run, last_bytes long (4D: the
-// images, the last tile of each cut to H % th rows; 3D: one run, the last
-// tile cut to (B*H) % tr rows). Each tile is cut into chunks of kChunk
-// bytes, the last chunk of a tile shorter, none crossing a tile's end.
+// each tile_bytes long but the last of a run, last_bytes long (4D and
+// flat: the images, the last tile of each cut to H % th rows; 3D: one run,
+// the last tile cut to (B*H) % tr rows). Each tile is cut into chunks of
+// kChunk bytes, the last chunk of a tile shorter, none crossing a tile's
+// end.
 // Chunk i is found by integer division (chunk_at, mirrored by
 // codon_tpu_torch.kernels.copy.ChunkMap.chunk). The grid is as many blocks
 // as the ring's shared memory lets an SM hold, on every SM, whatever the
@@ -276,15 +237,13 @@ int codon_copy4d(const void* src, void* dst, long long tile_bytes,
                           static_cast<cudaStream_t>(stream));
 }
 
-// row_bytes = W * C * element size; grid = (tiles, B) as the wrapper
-// planned.
-int codon_copyflat(const void* src, void* dst, int B, int H,
-                   long long row_bytes, int th, int tiles, void* stream) {
-  copyflat_kernel<<<dim3(tiles, B), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(src), static_cast<uint4*>(dst), H,
-      row_bytes / 16, th);
-  return static_cast<int>(cudaGetLastError());
+// The (B, H, W*C) view: a (1, th, W*C) tile is the same byte range as
+// copy4d's (1, th, W, C) tile, so the arguments are copy4d's.
+int codon_copyflat(const void* src, void* dst, long long tile_bytes,
+                   long long last_bytes, long long tiles, long long images,
+                   void* stream) {
+  return (int)launch_ring(src, dst, tile_bytes, last_bytes, tiles, images,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // tile_bytes = tr * W * C * element size; last_bytes = the last tile of the
@@ -295,7 +254,7 @@ int codon_copy3d(const void* src, void* dst, long long tile_bytes,
                           static_cast<cudaStream_t>(stream));
 }
 
-// The persistent grid copy4d and copy3d launch on the current device, into
+// The persistent grid the three copies launch on the current device, into
 // *grid.
 int codon_copy_ring_grid(int* grid) { return (int)ring_grid(grid); }
 

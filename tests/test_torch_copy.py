@@ -71,18 +71,20 @@ def test_plan_grid_and_last_tile(kind, shape, tile, grid, last):
     p = kcopy.plan(kind, shape, tile)
     assert p.grid == grid
     assert p.last_rows == last
-    assert p.blocks == grid[0] * grid[1]
-    assert p.ragged == (last != tile)
     rows = shape[0] if kind == "3d" else shape[1]
     assert (p.grid[0] - 1) * tile + p.last_rows == rows
     assert 0 < p.last_rows <= tile
 
 
-# the probe's shape in the 4d and 3d views, bf16, at the sweep's tiles:
-# (kind, shape, tile, chunks a full tile, chunks in the last tile, chunks)
+# the probe's shape in each view, bf16, at the sweep's tiles: (kind,
+# shape, tile, chunks a full tile, chunks in the last tile, chunks)
 PROBE_CHUNKS = [
     ("4d", (32, 370, 463, 64), 64, 116, 91, 21472),
     ("4d", (32, 370, 463, 64), 128, 232, 207, 32 * (2 * 232 + 207)),
+    # th 64 is copy4d's th 64; th 8: tiles of 474,112 B, 14 full chunks
+    # and one of 15,360 B, the last tile of 2 rows 4 chunks
+    ("flat", (32, 370, 29632), 64, 116, 91, 21472),
+    ("flat", (32, 370, 29632), 8, 15, 4, 32 * (46 * 15 + 4)),
     ("3d", (11840, 463, 64), 512, 926, 116, 21414),
     ("3d", (11840, 463, 64), 64, 116, 116, 185 * 116),
 ]
@@ -91,8 +93,8 @@ PROBE_CHUNKS = [
 def _tile_ends(kind, shape, tile, es):
     """Byte offsets at which the TPU tiles end, from `plan` alone."""
     p = kcopy.plan(kind, shape, tile)
-    row = int(np.prod(shape[2 if kind == "4d" else 1:])) * es
-    rows = shape[1] if kind == "4d" else shape[0]
+    row = int(np.prod(shape[1 if kind == "3d" else 2:])) * es
+    rows = shape[0] if kind == "3d" else shape[1]
     ends = []
     for run in range(p.grid[1]):
         for t in range(p.grid[0]):
@@ -151,6 +153,10 @@ def test_chunk_map_probe_counts_and_exact_tiles():
     ("4d", (3, 37, 29, 16), 8, 2, 1024),              # ragged, many chunks
     ("4d", (2, 64, 16, 64), 16, 2, 1024),             # tile = 2 chunks
     ("4d", (2, 9, 1, 8), 4, 2, 48),                   # tile = 1 chunk + 16 B
+    ("flat", (5, 9, 56), 64, 2, kcopy.CHUNK_BYTES),   # smaller than a chunk
+    ("flat", (3, 37, 29 * 16), 8, 2, 1024),           # ragged, many chunks
+    ("flat", (2, 9, 8), 4, 2, 48),                    # tile = 1 chunk + 16 B
+    ("flat", (2, 64, 1024), 16, 2, 1024),             # tile = 32 chunks
     ("3d", (111, 29, 16), 7, 2, 512),
     ("3d", (128, 16, 64), 64, 2, 32768),              # tile = 4 chunks
     ("3d", (5, 2, 8), 1, 4, 16),                      # 64-byte tiles
@@ -166,9 +172,19 @@ def test_chunk_map_covers_small_shapes(kind, shape, tile, es, chunk):
     assert (m.tiles, m.runs) == p.grid
 
 
-def test_chunk_map_refuses_flat():
-    with pytest.raises(ValueError):
-        kcopy.chunk_map("flat", (2, 9, 112), 4, 2)
+@pytest.mark.parametrize("shape,tile", [
+    ((32, 370, 463, 64), 64), ((32, 370, 463, 64), 8),
+    ((32, 370, 463, 64), 128), ((3, 37, 29, 16), 8), ((3, 37, 29, 16), 64),
+    ((2, 9, 1, 8), 4), ((5, 9, 7, 8), 3),
+])
+def test_flat_chunk_map_is_copy4ds(shape, tile):
+    # a (1, th, W*C) tile of the flat view is the byte range of the
+    # (1, th, W, C) tile of the 4d view: the kernel gets the same arguments
+    b, h, w, c = shape
+    flat = kcopy.chunk_map("flat", (b, h, w * c), tile, 2)
+    assert flat == kcopy.chunk_map("4d", shape, tile, 2)
+    assert (flat.tiles, flat.runs) == kcopy.plan("flat", (b, h, w * c),
+                                                 tile).grid
 
 
 def test_plan_refuses_bad_arguments():

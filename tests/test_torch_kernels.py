@@ -80,6 +80,23 @@ def test_spatial_logits_plain_matches_pallas():
     _close(got, want)
 
 
+@pytest.mark.parametrize("h,w", [(1, 1), (3, 2), (37, 29), (4, 70)])
+def test_spatial_logits_plain_pads_as_pallas_at_the_edges(h, w):
+    """Maps smaller than the 5x5 window, and ragged ones: the plain
+    version's SAME zero padding, which the card's kernel reproduces bitwise,
+    is the TPU kernel's."""
+    rng = np.random.RandomState(h * 100 + w)
+    cmax = rng.randn(N, h, w).astype(np.float32)
+    cmean = rng.randn(N, h, w).astype(np.float32)
+    sp_w = cac_weights(h + w)[-1]
+    want = jcac.spatial_logits(jnp.asarray(cmax), jnp.asarray(cmean),
+                               jnp.asarray(sp_w), interpret=True)
+    got = tcac.spatial_logits_plain(to_torch(cmax), to_torch(cmean),
+                                    to_torch(sp_w))
+    assert tuple(got.shape) == want.shape == (N, h, w)
+    _close(got, want)
+
+
 def test_apply_plain_matches_pallas():
     out, out_c, inp, inp_c = cac_towers(4, masked=False)
     rng = np.random.RandomState(5)

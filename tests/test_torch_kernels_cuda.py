@@ -8,7 +8,9 @@ JAX, so it runs on the machine with the card, where the repo's conftest
 
 Tolerances: float32 atol 1e-5 / rtol 1e-4 (only the order of float32 sums
 differs); bfloat16 two ulps of its 8-bit significand (a pooled mean or a
-gate value rounded once to bf16 may land one ulp apart). The CAC kernels
+gate value rounded once to bf16 may land one ulp apart). spatial_logits
+rounds every multiply and add as its plain version does, in the same order,
+and is held to it bitwise in every dtype. The CAC kernels
 are also held where TTA puts the valid region (flipped to the bottom
 right, and at the transposed padded shape 480 x 384). The copy kernels
 compute the identity and are held to it bitwise, with a sentinel around
@@ -69,16 +71,69 @@ def test_cuda_stats_matches_plain(dtype, masked):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+DTYPE_IDS = ["fp32", "bf16", "fp16"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @needs_cuda
 def test_cuda_spatial_logits_matches_plain(dtype):
     towers, m, _, _, sp_w = _cuda_inputs(dtype, 30)
     _, _, cmax, cmean = tcac.cac_stats_plain(towers[0], towers[1], m)
+    n0 = tcac.spatial_logits.launches
     got = tcac.spatial_logits(cmax, cmean, sp_w)
-    want = tcac.spatial_logits_plain(cmax, cmean, sp_w)
-    atol, rtol = CUDA_TOLS[dtype]
-    _close(got, want, atol, rtol)
+    assert tcac.spatial_logits.launches == n0 + 1
+    assert torch.equal(got, tcac.spatial_logits_plain(cmax, cmean, sp_w))
+
+
+def _maps(shape, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cmax, cmean = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                   for _ in range(2))
+    sp_w = torch.randn((5, 5, 2, 1), generator=g, device="cuda") * 0.2
+    return cmax, cmean, sp_w
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("shape", [
+    (2, 37, 29), (2, 370, 463),          # rows not whole 16-byte vectors
+    (1, 1, 1), (2, 3, 2), (2, 4, 70),    # below the 5x5 window's halo
+    (2, 33, 65), (2, 64, 32),            # a 32 x 64 tile's edges, +-1
+    (2, 5, 8), (16, 384, 480), (16, 480, 384),   # whole vectors; TTA8
+], ids=lambda s: "x".join(map(str, s)))
+@needs_cuda
+def test_cuda_spatial_logits_is_bitwise_at_every_edge(shape, dtype):
+    cmax, cmean, sp_w = _maps(shape, dtype, seed=sum(shape))
+    got = tcac.spatial_logits(cmax, cmean, sp_w)
+    assert got.shape == cmax.shape and got.dtype == dtype
+    assert torch.equal(got, tcac.spatial_logits_plain(cmax, cmean, sp_w))
+
+
+@needs_cuda
+def test_cuda_spatial_logits_maps_off_a_vector_boundary():
+    # rows of whole vectors, but the maps start 2 bytes past a 16-byte
+    # boundary: the kernel stages them element by element
+    cmax, cmean, sp_w = _maps((2, 40, 64), torch.bfloat16, seed=31)
+    bufs = [torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+            for t in (cmax, cmean)]
+    off = [b[1:].view(cmax.shape).copy_(t) for b, t in zip(bufs, (cmax,
+                                                                 cmean))]
+    assert off[0].data_ptr() % 16 != 0
+    assert torch.equal(tcac.spatial_logits(*off, sp_w),
+                       tcac.spatial_logits_plain(cmax, cmean, sp_w))
+
+
+@needs_cuda
+def test_cuda_spatial_logits_back_to_back_with_other_weights():
+    cmax, cmean, w1 = _maps((4, 384, 480), torch.bfloat16, seed=32)
+    w2 = torch.flip(w1, (0, 1)) * -1.5
+    # no synchronisation between the calls, on one stream
+    a = tcac.spatial_logits(cmax, cmean, w1)
+    b = tcac.spatial_logits(cmax, cmean, w2)
+    torch.cuda.synchronize()
+    assert torch.equal(a, tcac.spatial_logits_plain(cmax, cmean, w1))
+    assert torch.equal(b, tcac.spatial_logits_plain(cmax, cmean, w2))
+    assert not torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -175,8 +230,8 @@ def test_cuda_cac_kernels_where_tta_puts_the_mask(dtype, shape, valid,
     for g, w in zip(got[2:], want[2:]):
         _close(g, w, atol, rtol)
     _, _, cmax, cmean = want
-    _close(tcac.spatial_logits(cmax, cmean, sp_w),
-           tcac.spatial_logits_plain(cmax, cmean, sp_w), atol, rtol)
+    assert torch.equal(tcac.spatial_logits(cmax, cmean, sp_w),
+                       tcac.spatial_logits_plain(cmax, cmean, sp_w))
     for g, w in zip(tcac.cac_apply(*towers, gate, logits),
                     tcac.cac_apply_plain(*towers, gate, logits)):
         _close(g, w, atol, rtol)
@@ -239,7 +294,7 @@ def test_cuda_copy_wrappers_refuse_bad_inputs():
 
 
 # ---------------------------------------------------------------------------
-# the bulk ring of copy4d and copy3d: tiles at and around a chunk's edges,
+# the bulk ring of the three copies: tiles at and around a chunk's edges,
 # more chunks than the grid's stages hold, and calls back to back on one
 # stream
 # ---------------------------------------------------------------------------
@@ -247,7 +302,8 @@ def test_cuda_copy_wrappers_refuse_bad_inputs():
 def _ring_case(kind, shape, tile, seed=81):
     from codon_tpu_torch import perf_copy_probe as probe
     from codon_tpu_torch.kernels import copy as kcopy
-    fn = {"4d": kcopy.copy4d, "3d": kcopy.copy3d}[kind]
+    fn = {"4d": kcopy.copy4d, "flat": kcopy.copyflat,
+          "3d": kcopy.copy3d}[kind]
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = probe.view(torch.rand(shape, generator=g, device="cuda")
                    .to(torch.bfloat16), kind)
@@ -274,8 +330,13 @@ def _ring_case(kind, shape, tile, seed=81):
     # the whole copy smaller than one chunk
     ("4d", (5, 9, 7, 8), 4, 1, 4 * 112),
     ("3d", (5, 9, 7, 8), 3, 1, 3 * 112),
+    # the flat view: the same tiles as 4d's
+    ("flat", (2, 64, 16, 64), 16, 1, 32768),
+    ("flat", (3, 2049, 1, 8), 2049, 2, 32768 + 16),
+    ("flat", (5, 9, 7, 8), 4, 1, 4 * 112),
 ], ids=["4d-1chunk", "3d-4chunks", "4d-1chunk+16", "3d-3chunks+16",
-        "4d-subchunk", "3d-subchunk"])
+        "4d-subchunk", "3d-subchunk", "flat-1chunk", "flat-1chunk+16",
+        "flat-subchunk"])
 @needs_cuda
 def test_cuda_ring_tiles_at_chunk_edges(kind, shape, tile, per_tile,
                                         tile_bytes):
@@ -283,7 +344,8 @@ def test_cuda_ring_tiles_at_chunk_edges(kind, shape, tile, per_tile,
     assert (m.per_tile, m.tile_bytes) == (per_tile, tile_bytes)
 
 
-@pytest.mark.parametrize("kind,tile", [("4d", 64), ("3d", 512)])
+@pytest.mark.parametrize("kind,tile", [("4d", 64), ("3d", 512),
+                                       ("flat", 64), ("flat", 8)])
 @needs_cuda
 def test_cuda_ring_more_chunks_than_grid_stages(kind, tile):
     from codon_tpu_torch.kernels import copy as kcopy
@@ -329,6 +391,8 @@ def test_cuda_ring_grid_and_refusals():
                                           (448, 448, 0)):
         assert lib.codon_copy4d(x.data_ptr(), out.data_ptr(), tile_bytes,
                                 last_bytes, tiles, 2, stream) != 0
+        assert lib.codon_copyflat(x.data_ptr(), out.data_ptr(), tile_bytes,
+                                  last_bytes, tiles, 2, stream) != 0
         assert lib.codon_copy3d(x.data_ptr(), out.data_ptr(), tile_bytes,
                                 last_bytes, tiles, stream) != 0
     # a refusal leaves no error behind for the next launch
