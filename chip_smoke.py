@@ -18,7 +18,14 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
      single PyTorch call computing the same function, with CUDA events after
      a warmup; and takes each kernel's device time a launch at the main and
      TTA8 shapes from a CUDA graph of back-to-back calls (spatial_logits'
-     also at one output tile and at one image, and F.conv2d's too);
+     also at one output tile and at one image, and F.conv2d's too); then
+     holds the int8 conv's two kernels, quant_im2col (float32, bfloat16 and
+     int8 input; per-channel, per-image and no scale; k 1, 3 and 5) and
+     dequant_epilogue (float32, bfloat16 and float16; static and dynamic;
+     with and without the mask), bitwise against their plain versions at
+     the same four shapes, and times each at the int8 forward's shapes at
+     batch 4 (wrapper, plain version, device time a launch from a CUDA
+     graph, byte bound), with torch._int_mm's GEMM between them;
   4. runs `python -m codon_tpu_torch.cli eval` in-process, in bfloat16 at
      batch 4, with checkpoints/x4_ship4.npz, on a synthetic Middlebury-shaped
      scale directory (6 images of 463 x 370, 2 of 450 x 375, written with the
@@ -50,7 +57,20 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
      the cli's own forward and holds it in float32 against the mean of
      its members, then runs it as `cli eval` in bf16 with the CAC counters
      set to 0 just before and read just after;
- 12. prints the card's line again, the kernels' JSON line (six kernels),
+ 12. runs the float32 int8 forward of x4_ship4_qat_static.npz on the first
+     batch through the quant kernels and through their plain versions (the
+     CAC kernels in both, cuDNN deterministic): bitwise; and one small
+     float32 int8 forward on the card against the CPU, in the flip class;
+ 13. runs `cli eval --dtype int8` (bf16, batch 4) with x4_ship4_qat_static
+     with the CAC and quant counters set to 0 just before and read just
+     after, then again warm;
+ 14. runs `cli eval --dtype int8 --tta8 --device-metrics` with the same
+     counters and the bf16 TTA8 phase's metric checks;
+ 15. builds a static + dynamic int8 ensemble (x4_ship4_qat_static +
+     x4_ship4_qat) with --tta through the cli's own forward and holds it
+     against the mean of its members, then runs it as `cli eval` with the
+     counters;
+ 16. prints the card's line again, the kernels' JSON line (eight kernels),
      then the contract line {"ok": true, "device": {...}} as the last line
      of its output.
 
@@ -72,10 +92,15 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "checkpoints", "x4_ship4.npz")
 # the ensemble's second member: a holdout-trained checkpoint of variant codon
 CKPT2 = os.path.join(REPO, "checkpoints", "x4_holdout2.npz")
+# the static-int8 deployment: QAT weights with 18 calibrated act_scales
+# sites, and the same weights' dynamic-scale sibling (no act_scales)
+CKPT_INT8 = os.path.join(REPO, "checkpoints", "x4_ship4_qat_static.npz")
+CKPT_INT8_DYN = os.path.join(REPO, "checkpoints", "x4_ship4_qat.npz")
 
 # H100 SXM peaks (NVIDIA's data sheet), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12        # outside the tensor cores
+INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core operations
 # fp32 instructions a second: an FMA counts as 2 flops, a lone multiply or
 # add is one instruction all the same
 FP32_INSNS_PER_S = FP32_FLOPS_PER_S / 2
@@ -149,13 +174,34 @@ COPY_GUARD = 4096           # sentinel elements before and after the output
 # the synthetic scale dir: Middlebury's 463 x 370 and a second size that
 # pads to the same 480 x 384
 SCENES = [(370, 463)] * 6 + [(375, 450)] * 2
+# a whole int8 forward, card against CPU at 37 x 29: the flip class of
+# tests/test_torch_quant.py (one int8 code that flips at a rounding
+# boundary cascades; JAX's static int8 forward moves by mean 0.0028 / max
+# 0.036 when its input moves by 1e-6): mean |d| <= 0.01, max <= 0.1
+INT8_CPU_BOUNDS = (0.01, 0.1)
+# the quantized conv calls of one forward, (k, C_in, calls): conv_input(_c),
+# packed_d/c x 5, conv3/conv6 x 5, confuse(_c) x 5, conv7, packed_f x 3,
+# conv10 x 3, confuse_fuse x 3, conv11
+INT8_CONVS = ((3, 64, 2), (5, 64, 10), (5, 128, 10), (1, 128, 10),
+              (3, 128, 1), (5, 64, 3), (5, 128, 3), (1, 128, 3), (3, 64, 1))
+# the static backend's handoffs of one forward, each a quant_im2col call
+# at k = 1: 13 precommits (packed_d and packed_c before each of the 5
+# stages, packed_f before each of the 3 fuse stages) and 13 roundtrips
+# (the 2 stems, the 2 gates of each of the 5 stages, conv7's output)
+INT8_HANDOFFS = 26
 # file:line of each kernel's pallas_call
 REPLACES = {"cac_stats": "codon_tpu/kernels/cac.py:143",
             "spatial_logits": "codon_tpu/kernels/cac.py:193",
             "cac_apply": "codon_tpu/kernels/cac.py:239",
             "copy4d": "scripts/perf_pallas_probe.py:65",
             "copyflat": "scripts/perf_pallas_probe.py:75",
-            "copy3d": "scripts/perf_pallas_probe.py:85"}
+            "copy3d": "scripts/perf_pallas_probe.py:85",
+            "quant_im2col": "no Pallas source: XLA's fused int8 quantize / "
+                            "conv epilogue, codon_tpu/quant_ops.py:103-131, "
+                            "346-370",
+            "dequant_epilogue": "no Pallas source: XLA's fused int8 quantize "
+                                "/ conv epilogue, codon_tpu/quant_ops.py:"
+                                "103-131, 346-370"}
 
 
 def say(msg: str) -> None:
@@ -198,18 +244,27 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def make_stage_inputs(shape, valid, dtype, seed):
-    """Towers zero on padding, as masked convs leave them. valid: per image
-    (h, w) at the top left, or (h, w, flipped down, flipped right)."""
+def make_mask(shape, valid):
+    """(N, H, W, 1) float32 validity mask. valid: per image (h, w) at the
+    top left, or (h, w, flipped down, flipped right)."""
     import torch
-    n, h, w, c = shape
-    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    n, h, w = shape[:3]
     mask = torch.zeros((n, h, w, 1), device=DEVICE)
     for i, (vh, vw, *flip) in enumerate(valid):
         fv, fh = flip or (0, 0)
         rows = slice(h - vh, h) if fv else slice(0, vh)
         cols = slice(w - vw, w) if fh else slice(0, vw)
         mask[i, rows, cols] = 1.0
+    return mask
+
+
+def make_stage_inputs(shape, valid, dtype, seed):
+    """Towers zero on padding, as masked convs leave them; valid as in
+    `make_mask`."""
+    import torch
+    n, h, w, c = shape
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    mask = make_mask(shape, valid)
     towers = [torch.randn(shape, generator=g, device=DEVICE) * mask
               for _ in range(4)]
     gate = torch.rand((n, 1, c), generator=g, device=DEVICE)
@@ -442,13 +497,14 @@ def write_scale_dir(root: str, seed: int = 0):
 
 
 def eval_once(data: str, out: str, jpath: str, batch: int, extra=(),
-              ckpt: str = CKPT):
-    """One in-process `cli eval`, bf16 -> (summary, wall seconds)."""
+              ckpt: str = CKPT, dtype: str = "bf16"):
+    """One in-process `cli eval`, bf16 (or `dtype`) -> (summary, wall
+    seconds)."""
     from codon_tpu_torch import cli
     t0 = time.time()
     rc = cli.main(["eval", "--scale", "4", "--data-dir", data,
                    "--ckpt", ckpt, "--variant", "codon", "--batch",
-                   str(batch), "--dtype", "bf16", "--out", out,
+                   str(batch), "--dtype", dtype, "--out", out,
                    "--json", jpath, "--device", DEVICE, *extra])
     wall = time.time() - t0
     need(rc == 0, f"cli eval returned {rc}")
@@ -801,6 +857,354 @@ def run_ensemble(kc, data: str, tmp: str):
     return diff, spread, summary, wall, counts
 
 
+# ---------------------------------------------------------------------------
+# phases 12-17: the static-int8 family
+# ---------------------------------------------------------------------------
+
+def quant_inputs(shape, valid, seed):
+    """Activations (float32, x3 so the static grid clips some), their
+    scales, a mask as the stage checks place it, and int32 products."""
+    import torch
+    n, h, w, c = shape
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=DEVICE) * 3
+    sc = torch.rand((c,), generator=g, device=DEVICE) * 0.05 + 0.005
+    sx = torch.rand((n,), generator=g, device=DEVICE) * 0.05 + 0.005
+    mask = make_mask(shape, valid)
+    acc = torch.randint(-2 ** 20, 2 ** 20, (n * h * w, c), generator=g,
+                        device=DEVICE, dtype=torch.int32)
+    acc[::7] *= 2 ** 9          # sums past 2^24, where int32 -> f32 rounds
+    sw = torch.rand((c,), generator=g, device=DEVICE) * 1e-3
+    return x, sc, sx, mask, acc, sw
+
+
+def check_quant_kernels(kq):
+    """quant_im2col in float32, bfloat16 and int8 input, each scale mode,
+    k 1, 3 and 5; dequant_epilogue in float32, bfloat16 and float16,
+    static and dynamic, with and without the mask; at the main, odd and
+    both TTA8 shapes; bitwise. -> {name: [check, ...]}."""
+    import torch
+    checks = {"quant_im2col": [], "dequant_epilogue": []}
+    for i, (shape, valid) in enumerate(STAGE_CASES):
+        x, sc, sx, mask, acc, sw = quant_inputs(shape, valid, 200 + i)
+        for dname in ("float32", "bfloat16", "int8"):
+            dtype = getattr(torch, dname)
+            xd = (kq.quantize_plain(x, sc) if dtype == torch.int8
+                  else x.to(dtype).contiguous())
+            modes = ([("none", None, None)] if dtype == torch.int8 else
+                     [("channel", sc, None), ("sample", None, sx)])
+            for mode, a, b in modes:
+                for k in (1, 3, 5):
+                    got = kq.quant_im2col(xd, k, a, b)
+                    want = kq.quant_im2col_plain(xd, k, a, b)
+                    same = torch.equal(got, want)
+                    err = float((got.float() - want.float()).abs().max())
+                    checks["quant_im2col"].append(
+                        {"dtype": dname, "shape": list(shape), "k": k,
+                         "mode": mode, "max_abs_err": err, "bitwise": same,
+                         "ok": same})
+                    del got, want
+            del xd
+        n, h, w, _ = shape
+        for dname in ("float32", "bfloat16", "float16"):
+            dtype = getattr(torch, dname)
+            # float16 holds at most 65504: sums that stay below it
+            a = (acc if dtype != torch.float16 else
+                 torch.div(acc, 2 ** 14, rounding_mode="floor"))
+            for mode, b in (("static", None), ("dynamic", sx)):
+                for m in (mask.to(dtype), None):
+                    got = kq.dequant_epilogue(a, sw, dtype, (n, h, w), b, m)
+                    want = kq.dequant_epilogue_plain(a, sw, dtype,
+                                                     (n, h, w), b, m)
+                    same = torch.equal(got, want)
+                    checks["dequant_epilogue"].append(
+                        {"dtype": dname, "shape": list(shape), "mode": mode,
+                         "mask": m is not None, "bitwise": same,
+                         "max_abs_err": float((got.float() - want.float())
+                                              .abs().max()),
+                         "ok": same})
+        del x, acc
+        torch.cuda.empty_cache()
+    return checks
+
+
+def int8_launches(kq, n, h, w):
+    """dequant_epilogue and GEMM launches of one int8 forward of n images
+    at h x w: one a block of images at each quantized conv call. Each is
+    also a quant_im2col launch; the static backend's handoffs add
+    INT8_HANDOFFS more."""
+    return sum(calls * len(kq.image_blocks(n, h, w, k * k * c))
+               for k, c, calls in INT8_CONVS)
+
+
+def time_quant(kq):
+    """bf16 at the shapes of the int8 forward at batch 4, 384 x 480: each
+    quant kernel's wrapper over back-to-back calls, its plain version, its
+    device time a launch from a CUDA graph, and its byte bound, at each
+    distinct shape of the main path; the int8 GEMM (torch._int_mm) over
+    back-to-back calls at each. -> ({name: timings}, [gemm rows])."""
+    import torch
+    n, h, w = MAIN_SHAPE[:3]
+    bf = torch.bfloat16
+    g = torch.Generator(device=DEVICE).manual_seed(300)
+    mask = make_mask(MAIN_SHAPE, MAIN_VALID).to(bf)
+    # (k, C_in, C_out, calls a forward, input): the quantized convs of one
+    # forward grouped by shape; "int8" input is a precommitted packed site
+    # the handoffs' quantize, k = 1 on 64 channels, has no GEMM (C_out 0)
+    sites = ((3, 64, 64, 3, "bf16"), (5, 64, 128, 13, "int8"),
+             (5, 128, 128, 13, "bf16"), (1, 128, 64, 13, "bf16"),
+             (3, 128, 64, 1, "bf16"), (1, 64, 0, INT8_HANDOFFS, "bf16"))
+    out = {"quant_im2col": {"by_shape": []},
+           "dequant_epilogue": {"by_shape": []}}
+    gemms = []
+    for k, ci, co, calls, kind in sites:
+        kk = k * k * ci
+        blocks = kq.image_blocks(n, h, w, kk)
+        nb = blocks[0][1] - blocks[0][0]
+        x = torch.randn((nb, h, w, ci), generator=g, device=DEVICE) * 3
+        sc = torch.rand((ci,), generator=g, device=DEVICE) * 0.05 + 0.005
+        if kind == "int8":
+            xin, a = kq.quantize_plain(x, sc), None
+        else:
+            xin, a = x.to(bf).contiguous(), sc
+        rows = nb * h * w
+        im_bytes = xin.numel() * xin.element_size() + rows * kk
+        im_bound = bound(im_bytes, 0 if a is None else xin.numel())
+        r = {"shape": [nb, h, w, ci], "k": k, "input": kind,
+             "calls_a_forward": calls * len(blocks),
+             "device_ms": graph_ms(lambda: kq.quant_im2col(xin, k, a)),
+             "bound_ms": im_bound[0], "bound_by": im_bound[1]}
+        out["quant_im2col"]["by_shape"].append(r)
+        if not co:
+            continue
+        patches = kq.quant_im2col(xin, k, a)
+        # column-major (K, N): cuBLASLt's int8 GEMM takes B so
+        w8 = torch.randint(-127, 128, (co, kk), generator=g, device=DEVICE,
+                           dtype=torch.int8).t()
+        gemm_ms = time_ms(lambda: torch._int_mm(patches, w8))
+        gb_bytes = rows * kk + kk * co + rows * co * 4
+        gb = max(gb_bytes / HBM_BYTES_PER_S, 2 * rows * kk * co
+                 / INT8_OPS_PER_S) * 1e3
+        gemms.append({"m": rows, "k": kk, "n": co,
+                      "calls_a_forward": calls * len(blocks),
+                      "ms": gemm_ms, "bound_ms": gb,
+                      "bound_by": ("bytes" if gb_bytes / HBM_BYTES_PER_S >=
+                                   2 * rows * kk * co / INT8_OPS_PER_S
+                                   else "operations")})
+        acc = torch._int_mm(patches, w8)
+        del patches
+        sw = torch.rand((co,), generator=g, device=DEVICE) * 1e-3
+        m = mask[:nb].contiguous()
+        ep_bytes = rows * co * 4 + rows * 2 + rows * co * 2
+        ep_bound = bound(ep_bytes, 3 * rows * co)
+        e = {"shape": [nb, h, w, co], "calls_a_forward": calls * len(blocks),
+             "device_ms": graph_ms(lambda: kq.dequant_epilogue(
+                 acc, sw, bf, (nb, h, w), None, m)),
+             "bound_ms": ep_bound[0], "bound_by": ep_bound[1]}
+        out["dequant_epilogue"]["by_shape"].append(e)
+        if (k, ci) == (5, 128):
+            # the heaviest site (conv3, conv6, conv10): the row of record
+            out["quant_im2col"].update(
+                device_ms=r["device_ms"],
+                ms=time_ms(lambda: kq.quant_im2col(xin, k, a)),
+                plain_ms=time_ms(lambda: kq.quant_im2col_plain(xin, k, a),
+                                 warmup=1, iters=5),
+                bound_ms=im_bound[0], bound_by=im_bound[1],
+                shape=[nb, h, w, ci], k=k)
+            out["dequant_epilogue"].update(
+                device_ms=e["device_ms"],
+                ms=time_ms(lambda: kq.dequant_epilogue(acc, sw, bf,
+                                                       (nb, h, w), None, m)),
+                plain_ms=time_ms(lambda: kq.dequant_epilogue_plain(
+                    acc, sw, bf, (nb, h, w), None, m)),
+                bound_ms=ep_bound[0], bound_by=ep_bound[1],
+                shape=[nb, h, w, co])
+        del x, xin, acc
+        torch.cuda.empty_cache()
+    for name in out:
+        rows = out[name]["by_shape"]
+        # summed over the forward's calls: device ms a b4 forward
+        out[name]["device_ms_a_forward"] = sum(
+            r["device_ms"] * r["calls_a_forward"] for r in rows)
+        out[name]["bound_ms_a_forward"] = sum(
+            r["bound_ms"] * r["calls_a_forward"] for r in rows)
+    return out, gemms
+
+
+def static_int8_ops(dtype, impl=None):
+    """Int8StaticOps on x4_ship4_qat_static's scales, on the card."""
+    from codon_tpu_torch.checkpoint.native import load_npz, params_from_numpy
+    from codon_tpu_torch.quant_ops import Int8StaticOps
+    scales = params_from_numpy(load_npz(CKPT_INT8)["act_scales"], DEVICE)
+    return Int8StaticOps(scales, compute_dtype=dtype, quant_impl=impl)
+
+
+def compare_int8_paths(data: str):
+    """fp32 int8 forward of the first batch (x4_ship4_qat_static), the
+    quant kernels against their plain versions, the CAC kernels in both,
+    under cuDNN's deterministic mode: bitwise. Then card against CPU at 37
+    x 29 in the flip class. -> (max |d| kernels vs plain, (mean, max) card
+    vs CPU)."""
+    import torch
+    from codon_tpu_torch.checkpoint.native import load_npz, params_from_numpy
+    from codon_tpu_torch.models.codon_net import CodonConfig, codon_forward
+    tree = load_npz(CKPT_INT8)
+    tree.pop("act_scales")
+    params = params_from_numpy(tree, DEVICE)
+    b = first_batch(data)
+    cfg = CodonConfig(dead_heads=True, cac_impl="kernel")
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        outs = [codon_forward(params, b.depth, b.color, mask=b.mask, cfg=cfg,
+                              ops=static_int8_ops(torch.float32, impl))
+                for impl in (None, "plain")]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    need(bool(torch.isfinite(outs[0]).all()), "non-finite fp32 int8 forward")
+    d_paths = float((outs[0] - outs[1]).abs().max())
+    need(torch.equal(outs[0], outs[1]), f"fp32 int8 forward, quant kernels "
+         f"vs plain: max abs diff {d_paths}, not bitwise")
+
+    from codon_tpu_torch.quant_ops import Int8StaticOps
+    g = torch.Generator().manual_seed(2)
+    d = torch.rand((1, 37, 29, 1), generator=g)
+    c = torch.rand((1, 37, 29, 1), generator=g)
+    cfg = CodonConfig(dead_heads=True)
+    on_card = codon_forward(params, d.to(DEVICE), c.to(DEVICE), cfg=cfg,
+                            ops=static_int8_ops(torch.float32)).cpu()
+    cpu_scales = load_npz(CKPT_INT8)["act_scales"]
+    on_cpu = codon_forward(params_from_numpy(tree, "cpu"), d, c, cfg=cfg,
+                           ops=Int8StaticOps(cpu_scales))
+    diff = (on_card - on_cpu).abs()
+    d_cpu = (float(diff.mean()), float(diff.max()))
+    need(d_cpu[0] <= INT8_CPU_BOUNDS[0] and d_cpu[1] <= INT8_CPU_BOUNDS[1],
+         f"fp32 int8 forward, card vs CPU: mean {d_cpu[0]} max {d_cpu[1]}, "
+         f"outside the flip class {INT8_CPU_BOUNDS}")
+    return d_paths, d_cpu
+
+
+def read_counts(kc, kq):
+    return {**kc.launches(), **kq.launches()}
+
+
+def reset_counts(kc, kq):
+    kc.reset_launches()
+    kq.reset_launches()
+
+
+def need_int8_counts(counts, cac_want, conv_want, handoffs, what):
+    """The CAC kernels cac_want launches each; the epilogue and the GEMM
+    one a conv block, conv_want; quant_im2col those and the handoffs'."""
+    want = {"cac_stats": cac_want, "spatial_logits": cac_want,
+            "cac_apply": cac_want, "dequant_epilogue": conv_want,
+            "int8_gemm": conv_want, "quant_im2col": conv_want + handoffs}
+    for name, n in want.items():
+        need(counts[name] == n, f"{what}: {name} launched {counts[name]} "
+             f"times; expected {n}")
+
+
+def run_int8_path(kc, kq, data: str, tmp: str):
+    """cli eval --dtype int8 (x4_ship4_qat_static, bf16, batch 4), with
+    the CAC and quant counts set to 0 just before and read just after;
+    then the same eval warm."""
+    n_images = len(SCENES)
+    batches = -(-n_images // 4)
+    reset_counts(kc, kq)
+    summary, wall = eval_once(data, os.path.join(tmp, "int8"),
+                              os.path.join(tmp, "int8.json"), 4,
+                              ckpt=CKPT_INT8, dtype="int8")
+    counts = read_counts(kc, kq)
+    need(len(summary["per_image"]) == n_images and
+         all(math.isfinite(r["rmse"]) and math.isfinite(r["ssim"])
+             for r in summary["per_image"]),
+         "the int8 eval did not score every image")
+    need(len(os.listdir(os.path.join(tmp, "int8"))) == n_images,
+         "the int8 eval did not write every PNG")
+    need_int8_counts(counts, 5 * batches,
+                     batches * int8_launches(kq, *MAIN_SHAPE[:3]),
+                     batches * INT8_HANDOFFS, "int8 eval")
+    warm, _ = eval_once(data, os.path.join(tmp, "int8_warm"),
+                        os.path.join(tmp, "int8_warm.json"), 4,
+                        ckpt=CKPT_INT8, dtype="int8")
+    need(all(warm[k] == summary[k] for k in ("mean_rmse", "mean_ssim")),
+         "the warm int8 eval scored differently")
+    return summary, wall, counts, warm
+
+
+def run_int8_tta_path(kc, kq, data: str, tmp: str):
+    """cli eval --dtype int8 --tta8 --device-metrics, with the counts set
+    to 0 just before and read just after; metrics held as the bf16 TTA8
+    phase holds them."""
+    n_images = len(SCENES)
+    batches = -(-n_images // 4)
+    out = os.path.join(tmp, "int8_tta8")
+    reset_counts(kc, kq)
+    summary, wall = eval_once(data, out, os.path.join(tmp, "int8_tta8.json"),
+                              4, ["--tta8", "--device-metrics"],
+                              ckpt=CKPT_INT8, dtype="int8")
+    counts = read_counts(kc, kq)
+    need(summary["tta_transforms"] == 8, "the int8 eval did not run TTA8")
+    need(len(summary["per_image"]) == n_images and
+         all(math.isfinite(r["rmse"]) and math.isfinite(r["ssim"])
+             for r in summary["per_image"]),
+         "the int8 TTA8 eval did not score every image")
+    n, h, w = TTA_SHAPE[:3]
+    need_int8_counts(counts, 2 * 5 * batches,
+                     batches * (int8_launches(kq, n, h, w) +
+                                int8_launches(kq, n, w, h)),
+                     2 * batches * INT8_HANDOFFS, "int8 TTA8 eval")
+    gaps = check_device_metrics(summary, data, out)
+    return summary, wall, counts, gaps
+
+
+def run_int8_ensemble(kc, kq, data: str, tmp: str):
+    """A static + dynamic int8 ensemble with --tta: its forward through
+    the cli against the mean of its members' (cuDNN deterministic), then
+    `cli eval` with the counts set to 0 just before and read just after."""
+    import torch
+    from codon_tpu_torch import cli
+    b = first_batch(data)
+
+    def forward(ckpt):
+        args = cli._build_argparser().parse_args(
+            ["eval", "--ckpt", ckpt, "--tta", "--dtype", "int8",
+             "--device", DEVICE])
+        ef = cli.make_eval_forward(args, torch.device(DEVICE))
+        return ef, ef.fwd(ef.params, b.depth, b.color, b.mask)
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ef, ens = forward(f"{CKPT_INT8},{CKPT_INT8_DYN}")
+        solo = [forward(c)[1] for c in (CKPT_INT8, CKPT_INT8_DYN)]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    need(ef.ensemble and ef.tta == 4, "the cli did not build a TTA ensemble")
+    diff = float((ens - (solo[0] + solo[1]) / 2).abs().max())
+    need(diff <= FWD_TOL, f"int8 ensemble vs the mean of its members: max "
+         f"abs diff {diff} > {FWD_TOL}")
+    spread = float((solo[0] - solo[1]).abs().max())
+    need(spread > 10 * FWD_TOL, f"the static and dynamic members agree to "
+         f"{spread}: the check could not tell them apart")
+
+    reset_counts(kc, kq)
+    summary, wall = eval_once(data, os.path.join(tmp, "int8_ens"),
+                              os.path.join(tmp, "int8_ens.json"), 4,
+                              ["--tta"], ckpt=f"{CKPT_INT8},{CKPT_INT8_DYN}",
+                              dtype="int8")
+    counts = read_counts(kc, kq)
+    batches = -(-len(SCENES) // 4)
+    # the static member hands off through quant_im2col, the dynamic one
+    # has no handoffs
+    need_int8_counts(counts, 2 * 5 * batches,
+                     2 * batches * int8_launches(kq, *TTA_SHAPE[:3]),
+                     batches * INT8_HANDOFFS, "int8 ensemble eval")
+    need(all(math.isfinite(summary[k]) for k in ("mean_rmse", "mean_ssim")),
+         "the int8 ensemble eval's means are not finite")
+    return diff, spread, summary, wall, counts
+
+
 def main() -> int:
     try:
         import torch
@@ -819,6 +1223,7 @@ def main() -> int:
     from codon_tpu_torch.kernels import _build
     from codon_tpu_torch.kernels import cac as kc
     from codon_tpu_torch.kernels import copy as kcopy
+    from codon_tpu_torch.kernels import quant as kq
 
     # 1. the card
     card = card_line()
@@ -868,6 +1273,45 @@ def main() -> int:
         say(f"device spatial_logits {tuple(r['shape'])}: "
             f"{r['device_ms'] * 1e3:.2f} us a launch")
     say(f"kernel checks and timings: {time.time() - t0:.1f} s")
+
+    # 3, the int8 conv's kernels: bitwise against their plain versions,
+    # then timed at the int8 forward's shapes
+    t0 = time.time()
+    qchecks = check_quant_kernels(kq)
+    for name, rows in qchecks.items():
+        for r in rows:
+            say(f"check {name} {r['dtype']} {tuple(r['shape'])} "
+                + (f"k={r['k']} " if "k" in r else "")
+                + f"{r['mode']}"
+                + (f" mask={r['mask']}" if "mask" in r else "")
+                + f" bitwise {r['bitwise']}: max_abs_err "
+                  f"{r['max_abs_err']:.3e} {'ok' if r['ok'] else 'FAIL'}")
+    bad = [(n, r) for n, rows in qchecks.items() for r in rows if not r["ok"]]
+    need(not bad, f"{len(bad)} quant kernel checks not bitwise: {bad}")
+    qtimes, gemms = time_quant(kq)
+    for name, t in qtimes.items():
+        say(f"time {name} {tuple(t['shape'])}: wrapper {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+            f"by {t['bound_by']}")
+        for r in t["by_shape"]:
+            say(f"device {name} {tuple(r['shape'])}"
+                + (f" k={r['k']} {r['input']}" if "k" in r else "")
+                + f": {r['device_ms'] * 1e3:.2f} us a launch ({GRAPH_CALLS} "
+                  f"calls in a CUDA graph); bound {r['bound_ms'] * 1e3:.2f} "
+                  f"us by {r['bound_by']}; {r['calls_a_forward']} launches a "
+                  f"b4 forward")
+        say(f"device {name}, a b4 int8 forward: {t['device_ms_a_forward']:.4f}"
+            f" ms over its launches; bound {t['bound_ms_a_forward']:.4f} ms")
+    for r in gemms:
+        say(f"gemm torch._int_mm ({r['m']} x {r['k']}) x ({r['k']} x "
+            f"{r['n']}): {r['ms']:.4f} ms back to back; bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}; "
+            f"{r['calls_a_forward']} calls a b4 forward")
+    gemm_ms = sum(r["ms"] * r["calls_a_forward"] for r in gemms)
+    gemm_bound = sum(r["bound_ms"] * r["calls_a_forward"] for r in gemms)
+    say(f"gemm, a b4 int8 forward: {gemm_ms:.4f} ms over its calls; bound "
+        f"{gemm_bound:.4f} ms")
+    say(f"quant kernel checks and timings: {time.time() - t0:.1f} s")
 
     # 4. the main path
     with tempfile.TemporaryDirectory(prefix="codon_chip_smoke_") as tmp:
@@ -954,7 +1398,50 @@ def main() -> int:
             f"RMSE {ens['mean_rmse']}, mean SSIM {ens['mean_ssim']}, "
             f"{ens_wall:.1f} s wall; launches {ens_counts}")
 
-    # 12. results
+        # 12. the int8 forward, fp32: quant kernels vs plain, card vs CPU
+        d_int8, d_int8_cpu = compare_int8_paths(data)
+        say(f"fp32 int8 forward b4 384x480 (x4_ship4_qat_static): quant "
+            f"kernels vs plain max abs diff {d_int8:.3e} (bitwise); card vs "
+            f"CPU 37x29 mean {d_int8_cpu[0]:.3e} max {d_int8_cpu[1]:.3e} "
+            f"(<= {INT8_CPU_BOUNDS[0]}, {INT8_CPU_BOUNDS[1]})")
+
+        # 13. the int8 eval: the quant kernels' main path
+        i8, i8_wall, i8_counts, i8_warm = run_int8_path(kc, kq, data, tmp)
+        say(f"int8 path: cli eval --dtype int8 b4 (x4_ship4_qat_static), "
+            f"mean RMSE {i8['mean_rmse']}, mean SSIM {i8['mean_ssim']}, "
+            f"{i8_wall:.1f} s wall; img/s steady "
+            f"{i8['img_per_sec_steady']}, end-to-end "
+            f"{i8['img_per_sec_e2e']}; launches {i8_counts}")
+        say(f"int8 path again, warm: img/s steady "
+            f"{i8_warm['img_per_sec_steady']}, compute+D2H "
+            f"{i8_warm['img_per_sec_compute']}, end-to-end "
+            f"{i8_warm['img_per_sec_e2e']}")
+
+        # 14. int8 with TTA8 and on-device metrics
+        i8t, i8t_wall, i8t_counts, i8_gaps = run_int8_tta_path(kc, kq, data,
+                                                               tmp)
+        say(f"int8 tta8 path: cli eval --dtype int8 --tta8 --device-metrics "
+            f"b4, mean RMSE {i8t['mean_rmse']}, mean SSIM "
+            f"{i8t['mean_ssim']}, {i8t_wall:.1f} s wall; img/s steady "
+            f"{i8t['img_per_sec_steady']}; launches {i8t_counts}")
+        say(f"int8 tta8 metrics: card vs host on the PNGs: RMSE max |d| "
+            f"{i8_gaps['rmse_host']:.3e}, SSIM max |d| "
+            f"{i8_gaps['ssim_host']:.3e}; card vs CPU, same tensors: RMSE "
+            f"{i8_gaps['rmse_cpu']:.3e}, SSIM {i8_gaps['ssim_cpu']:.3e}")
+
+        # 15. a static + dynamic int8 ensemble with --tta
+        d_i8e, i8_spread, i8e, i8e_wall, i8e_counts = run_int8_ensemble(
+            kc, kq, data, tmp)
+        say(f"int8 ensemble x4_ship4_qat_static + x4_ship4_qat --tta: vs the "
+            f"mean of its members max abs diff {d_i8e:.3e} (<= {FWD_TOL}; "
+            f"the members differ by up to {i8_spread:.3e}); cli eval b4 "
+            f"mean RMSE {i8e['mean_rmse']}, mean SSIM {i8e['mean_ssim']}, "
+            f"{i8e_wall:.1f} s wall; launches {i8e_counts}")
+
+    # 16. results
+    int8_paths = {"eval_int8": i8_counts,
+                  "eval_int8_tta8_device_metrics": i8t_counts,
+                  "eval_int8_ensemble2_tta": i8e_counts}
     kernels = []
     for name in ("cac_stats", "spatial_logits", "cac_apply"):
         t = timings[name]
@@ -964,7 +1451,9 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": counts[name],
             "launches_by_path": {"eval": counts[name],
                                  "eval_tta8_device_metrics": tta_counts[name],
-                                 "eval_ensemble2_tta": ens_counts[name]},
+                                 "eval_ensemble2_tta": ens_counts[name],
+                                 **{p: c[name] for p, c in
+                                    int8_paths.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in checks[name]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -989,6 +1478,22 @@ def main() -> int:
             "shape": list(probe.view(torch.empty(PROBE_SHAPE, device="meta"),
                                      kind).shape),
             "dtype": "bfloat16"})
+    for name in ("quant_im2col", "dequant_epilogue"):
+        t = qtimes[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "codon_tpu_torch/kernels/csrc/quant.cu",
+            "replaces": REPLACES[name], "launches": i8_counts[name],
+            "launches_by_path": {p: c[name] for p, c in int8_paths.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in qchecks[name]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "device_ms": t["device_ms"],
+            "device_ms_a_forward": t["device_ms_a_forward"],
+            "bound_ms_a_forward": t["bound_ms_a_forward"],
+            "by_shape": t["by_shape"], "shape": t["shape"],
+            "dtype": "bfloat16",
+            **({"int8_gemm": gemms} if name == "quant_im2col" else {})})
     for k in kernels:
         # the same numbers under the names the port's records use
         k["max_err"] = k["max_abs_err"]

@@ -5,7 +5,9 @@
 
 eval  run a model over a scale directory, write PNGs, report RMSE / SSIM;
       --tta / --tta8 average over geometric transforms, --ckpt a,b averages
-      a model ensemble, --device-metrics scores on the card
+      a model ensemble, --device-metrics scores on the card, --dtype int8
+      runs the quantized convs (static per-channel scales where the
+      checkpoint carries act_scales/*, else dynamic per-sample ones)
 
 The model runs on the card (`--device cuda`, the default) unless the caller
 asks for the CPU with `--device cpu`; without CUDA the default raises.
@@ -43,8 +45,10 @@ def _build_argparser() -> argparse.ArgumentParser:
                         "with a --ckpt ensemble, a comma list of one name "
                         "a member, or one name for all")
     e.add_argument("--batch", type=int, default=4)
-    e.add_argument("--dtype", choices=("bf16", "fp32", "fp16"),
-                   default="bf16")
+    e.add_argument("--dtype", choices=("bf16", "fp32", "fp16", "int8"),
+                   default="bf16",
+                   help="int8: int8 convs (codon_tpu_torch.quant_ops), the "
+                        "rest in bf16")
     e.add_argument("--pad-multiple", type=int, default=32)
     e.add_argument("--out", default="CODON_result_save")
     e.add_argument("--no-save", action="store_true")
@@ -87,23 +91,30 @@ def _device(name: str) -> torch.device:
 
 
 def _load_params(ckpt, variant, device):
+    """-> (params, act_scales): the checkpoint's `act_scales/*` split off
+    as {site: (C,) float32 tensor on the device}, or None without them."""
     from codon_tpu_torch.checkpoint.native import load_npz, params_from_numpy
 
     dt = variant.cfg.dtypes.param_dtype
     if ckpt is None:
         print("WARNING: no --ckpt given; using random init "
               "(outputs will not match the reference).")
-        return variant.init(torch.Generator().manual_seed(0), device=device)
+        return (variant.init(torch.Generator().manual_seed(0),
+                             device=device), None)
     if not ckpt.endswith(".npz"):
         raise SystemExit(f"--ckpt {ckpt}: the port reads native .npz "
                          f"checkpoints only")
-    params = params_from_numpy(load_npz(ckpt), device, dt)
+    tree = load_npz(ckpt)
+    scales = tree.pop("act_scales", None)
+    params = params_from_numpy(tree, device, dt)
+    if scales is not None:
+        scales = params_from_numpy(scales, device, torch.float32)
     print(f"loaded native checkpoint {ckpt}")
-    return params
+    return params, scales
 
 
 def _load_members(args, dtypes, device):
-    """--ckpt and --variant -> ([(params, variant)], ensemble?).
+    """--ckpt and --variant -> ([(params, act_scales, variant)], ensemble?).
 
     A comma list of checkpoints is an ensemble, with one variant name for
     all members or one a member. Each member is a native .npz carried
@@ -121,7 +132,7 @@ def _load_members(args, dtypes, device):
                 f"--ckpt members (give 1 or {len(ckpts)})")
         variants = [get_variant(v, dtypes=dtypes) for v in
                     (vnames * len(ckpts) if len(vnames) == 1 else vnames)]
-        members = [(_load_params(ck, v, device), v)
+        members = [(*_load_params(ck, v, device), v)
                    for ck, v in zip(ckpts, variants)]
         print(f"ensemble: averaging {len(members)} models"
               + (f" [{', '.join(v.name for v in variants)}]"
@@ -131,7 +142,28 @@ def _load_members(args, dtypes, device):
         raise SystemExit("--variant lists multiple names but --ckpt is not "
                          "an ensemble")
     variant = get_variant(vnames[0], dtypes=dtypes)
-    return [(_load_params(args.ckpt, variant, device), variant)], False
+    return [(*_load_params(args.ckpt, variant, device), variant)], False
+
+
+def _member_ops(dtype, members, ensemble):
+    """One Ops backend a member: None (float) unless dtype is int8, then
+    Int8StaticOps on the member's act_scales, or Int8Ops without them. The
+    banners are the JAX package's, word for word."""
+    if dtype != "int8":
+        return [None] * len(members)
+    from codon_tpu_torch.quant_ops import Int8Ops, Int8StaticOps
+    if ensemble:
+        modes = ["static" if sc is not None else "dynamic"
+                 for _, sc, _ in members]
+        print(f"int8: per-member scales [{', '.join(modes)}]")
+    elif members[0][1] is not None:
+        print(f"int8: static per-channel scales from checkpoint "
+              f"({len(members[0][1])} conv sites)")
+    else:
+        print("int8: dynamic per-sample scales (checkpoint carries no "
+              "act_scales; train --qat-static to add them)")
+    return [Int8StaticOps(sc, compute_dtype=v.cfg.dtypes.compute_dtype)
+            if sc is not None else Int8Ops() for _, sc, v in members]
 
 
 @dataclasses.dataclass
@@ -150,31 +182,32 @@ def make_eval_forward(args, device) -> EvalForward:
     The wrappers nest as in `codon_tpu.cli eval`: the scale-conditioning
     plane innermost (a constant is flip- and transpose-invariant, so the
     geometric transforms act on the 1-channel depth), the ensemble mean over
-    each member's own forward around it, then TTA around it all.
+    each member's own forward (with its own int8 backend) around it, then
+    TTA around it all.
     """
     from codon_tpu_torch.core.params import DTYPE_POLICIES
     from codon_tpu_torch.models.variants import with_scale_cond
 
     members, ensemble = _load_members(args, DTYPE_POLICIES[args.dtype],
                                       device)
-    variant = members[0][1]
+    member_ops = _member_ops(args.dtype, members, ensemble)
     cond = args.scale / 16.0 if args.scale_cond else None
 
-    def member_fwd(v):
+    def member_fwd(v, ops):
         def fwd(p, d, c, m):
-            return v.forward(p, d, c, mask=m)
+            return v.forward(p, d, c, mask=m, ops=ops)
         return with_scale_cond(fwd, cond) if cond is not None else fwd
 
+    fwds = [member_fwd(v, ops) for (_, _, v), ops in zip(members, member_ops)]
     if ensemble:
-        params = [p for p, _ in members]
-        fwds = [member_fwd(v) for _, v in members]
+        params = [p for p, _, _ in members]
 
         def inner(plist, d, c, m):
             outs = [f(p, d, c, m) for p, f in zip(plist, fwds)]
             return sum(outs) / len(outs)
     else:
         params = members[0][0]
-        inner = member_fwd(variant)
+        inner = fwds[0]
     tta_n = 8 if args.tta8 else (4 if args.tta else 0)
     fwd = inner
     if tta_n:

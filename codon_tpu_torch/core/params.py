@@ -35,7 +35,10 @@ FP32 = DTypePolicy()
 BF16 = DTypePolicy(compute_dtype=torch.bfloat16)
 FP16 = DTypePolicy(compute_dtype=torch.float16)
 
-DTYPE_POLICIES = {"fp32": FP32, "bf16": BF16, "fp16": FP16}
+# "int8" computes its float parts (the convs that stay float, the CAC
+# stage, the adds) under the bf16 policy; the quantized convs run in the
+# backends of `codon_tpu_torch.quant_ops`, as in `codon_tpu.core.params`
+DTYPE_POLICIES = {"fp32": FP32, "bf16": BF16, "fp16": FP16, "int8": BF16}
 
 
 @contextlib.contextmanager

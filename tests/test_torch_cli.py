@@ -90,9 +90,125 @@ def test_unported_flags_are_not_in_the_parser(flag, capsys):
     assert "unrecognized arguments" in capsys.readouterr().err
 
 
-def test_int8_is_not_a_dtype_yet(capsys):
-    with pytest.raises(SystemExit):
-        tcli._build_argparser().parse_args(["eval", "--dtype", "int8"])
+# int8 eval against JAX's: the flip class of tests/test_torch_quant.py's
+# whole-forward bounds on the [0, 1] output (static: mean |d| <= 0.01,
+# max <= 0.1; dynamic 0.03 / 0.3; an ensemble of one of each averages them,
+# 0.02 / 0.2), carried to what eval writes. On the PNGs, uint8 truncation
+# adds at most one level a pixel: mean |d| <= 255 mean + 1, max <= 255 max
+# + 1. Per image, |RMSE_a - RMSE_b| <= RMS(a - b) (triangle inequality on
+# the same valid pixels) <= 255 sqrt(mean * max) + 1, since sum d^2 <= max
+# |d| sum |d|. SSIM within 0.01 (not derived; the runs here read 3e-4).
+INT8_BOUNDS = {"static": (0.01, 0.1), "ensemble": (0.02, 0.2),
+               "dynamic": (0.03, 0.3)}
+INT8_BANNERS = {
+    "static": "int8: static per-channel scales from checkpoint (18 conv "
+              "sites)",
+    "ensemble": "int8: per-member scales [static, dynamic]",
+    "dynamic": "int8: dynamic per-sample scales (checkpoint carries no "
+               "act_scales; train --qat-static to add them)"}
+
+
+@pytest.mark.parametrize("kind,extra", [
+    ("static", ["--ckpt", "x4_ship4_qat_static.npz"]),
+    ("ensemble", ["--ckpt", "x4_ship4_qat_static.npz,x4_ship4_qat.npz",
+                  "--tta"]),
+    ("dynamic", ["--ckpt", "x4_holdout_sc.npz", "--variant", "codon_sc",
+                 "--scale-cond"]),
+], ids=["static", "ensemble-static-dynamic-tta", "dynamic-scale-cond"])
+def test_int8_eval_matches_jax(tmp_path, capsys, kind, extra):
+    data = str(tmp_path / "CODON_X4")
+    names = write_scale_dir(data, TTA_SIZES, seed=5)
+    extra = [",".join(os.path.join(CKPT_DIR, c) for c in a.split(","))
+             if a.endswith(".npz") else a for a in extra]
+    # a later --dtype wins over _eval's --dtype fp32
+    extra = ["--dtype", "int8", *extra]
+    capsys.readouterr()
+    got = _eval(tcli, data, str(tmp_path / "t_out"), str(tmp_path / "t.json"),
+                extra, ["--device", "cpu"])
+    t_said = capsys.readouterr().out
+    want = _eval(jcli, data, str(tmp_path / "j_out"),
+                 str(tmp_path / "j.json"), extra, [])
+    j_said = capsys.readouterr().out
+    assert INT8_BANNERS[kind] in t_said and INT8_BANNERS[kind] in j_said
+    assert "[int8, batch=2" in t_said and "[int8, batch=2" in j_said
+    assert set(got) == set(want)
+    assert [r["name"] for r in got["per_image"]] == \
+        [r["name"] for r in want["per_image"]] == names
+    mean_b, max_b = INT8_BOUNDS[kind]
+    rmse_tol = 255 * (mean_b * max_b) ** 0.5 + 1
+    for g, w in zip(got["per_image"], want["per_image"]):
+        assert g["rmse"] == pytest.approx(w["rmse"], abs=rmse_tol)
+        assert g["ssim"] == pytest.approx(w["ssim"], abs=0.01)
+    for n in names:
+        a = imread_gray(os.path.join(tmp_path, "t_out", n + ".png"))
+        b = imread_gray(os.path.join(tmp_path, "j_out", n + ".png"))
+        d = np.abs(a.astype(int) - b.astype(int))
+        assert a.shape == b.shape
+        assert d.mean() <= 255 * mean_b + 1 and d.max() <= 255 * max_b + 1
+
+
+def test_int8_eval_runs_the_ports_own_int8_forward(tmp_path, capsys):
+    """What `cli eval --dtype int8` writes is, bit for bit, the uint8
+    truncation of `codon_forward` with `Int8StaticOps` on the checkpoint's
+    act_scales, in the bf16 policy, batch by batch."""
+    from codon_tpu_torch.checkpoint.native import load_npz, params_from_numpy
+    from codon_tpu_torch.core.params import BF16
+    from codon_tpu_torch.data.pipeline import batched_loader
+    from codon_tpu_torch.models.codon_net import codon_forward
+    from codon_tpu_torch.models.variants import get_variant
+    from codon_tpu_torch.quant_ops import Int8StaticOps
+    data = str(tmp_path / "d")
+    names = write_scale_dir(data, TTA_SIZES, seed=6)
+    ckpt = os.path.join(CKPT_DIR, "x4_ship4_qat_static.npz")
+    out = str(tmp_path / "out")
+    _eval(tcli, data, out, str(tmp_path / "t.json"),
+          ["--dtype", "int8", "--ckpt", ckpt], ["--device", "cpu"])
+    tree = load_npz(ckpt)
+    ops = Int8StaticOps(tree.pop("act_scales"), compute_dtype=torch.bfloat16)
+    params = params_from_numpy(tree, "cpu")
+    cfg = get_variant("codon", BF16).cfg
+    seen = 0
+    for b in batched_loader(data, names, 2, 32, device="cpu"):
+        y = codon_forward(params, b.depth, b.color, mask=b.mask, cfg=cfg,
+                          ops=ops)
+        u8 = (y[..., 0].clamp(0.0, 1.0) * 255).to(torch.uint8).numpy()
+        for i, name in enumerate(b.names):
+            h, w = b.sizes[i]
+            png = imread_gray(os.path.join(out, name + ".png"))
+            assert np.array_equal(png, u8[i, :h, :w])
+            seen += 1
+    assert seen == len(names)
+
+
+def test_int8_device_metrics_equal_host_metrics(tmp_path):
+    """--dtype int8 --tta8 --device-metrics scores the int8 forward: on
+    images that fill the padded shape its metrics equal the host metrics
+    of the same eval without --device-metrics (tolerances as in
+    test_device_metrics_with_scale_cond_equal_host_metrics)."""
+    data = str(tmp_path / "d")
+    write_scale_dir(data, [(32, 32), (32, 32)], seed=7)
+    flags = ["--ckpt", os.path.join(CKPT_DIR, "x4_ship4_qat_static.npz"),
+             "--dtype", "int8", "--tta8"]
+    dev = _eval(tcli, data, str(tmp_path / "a"), str(tmp_path / "a.json"),
+                [*flags, "--device-metrics"], ["--device", "cpu"])
+    host = _eval(tcli, data, str(tmp_path / "b"), str(tmp_path / "b.json"),
+                 flags, ["--device", "cpu"])
+    assert dev["tta_transforms"] == host["tta_transforms"] == 8
+    for g, w in zip(dev["per_image"], host["per_image"]):
+        assert g["rmse"] == pytest.approx(w["rmse"], abs=1e-3)
+        assert g["ssim"] == pytest.approx(w["ssim"], abs=1e-5)
+
+
+def test_act_scales_are_split_off_for_every_dtype(tmp_path):
+    from codon_tpu_torch.models.variants import get_variant
+    v = get_variant("codon")
+    params, scales = tcli._load_params(
+        os.path.join(CKPT_DIR, "x4_ship4_qat_static.npz"), v, "cpu")
+    assert "act_scales" not in params and len(scales) == 18
+    assert all(t.dtype == torch.float32 for t in scales.values())
+    params, scales = tcli._load_params(
+        os.path.join(CKPT_DIR, "x4_ship4_qat.npz"), v, "cpu")
+    assert scales is None
 
 
 def test_eval_refuses_torch_checkpoints(tmp_path):

@@ -9,6 +9,7 @@ import torch
 import jax.numpy as jnp
 
 from codon_tpu.checkpoint import native as jnative
+from codon_tpu.core import params as jparams
 from codon_tpu.core.ops import XlaOps
 
 from codon_tpu_torch.checkpoint import native as tnative
@@ -83,7 +84,9 @@ def test_dtype_policies():
     assert tparams.DTYPE_POLICIES["fp16"].compute_dtype == torch.float16
     for p in tparams.DTYPE_POLICIES.values():
         assert p.param_dtype == torch.float32
-    assert "int8" not in tparams.DTYPE_POLICIES
+    # int8 computes its float parts under the bf16 policy, as in JAX
+    assert tparams.DTYPE_POLICIES["int8"] is tparams.BF16
+    assert set(tparams.DTYPE_POLICIES) == set(jparams.DTYPE_POLICIES)
 
 
 def test_linear_init_bounds_and_layout():

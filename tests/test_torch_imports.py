@@ -49,7 +49,9 @@ def _imported_roots(path):
 def test_card_files_exist():
     names = {os.path.relpath(p, REPO) for p in _card_files()}
     for need in ("codon_tpu_torch/cli.py", "codon_tpu_torch/kernels/cac.py",
-                 "codon_tpu_torch/models/codon_net.py", "chip_smoke.py"):
+                 "codon_tpu_torch/models/codon_net.py", "chip_smoke.py",
+                 "codon_tpu_torch/quant_ops.py",
+                 "codon_tpu_torch/kernels/quant.py"):
         assert need in names
     assert all(os.path.exists(p) for p in _card_files())
 

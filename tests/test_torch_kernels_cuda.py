@@ -14,7 +14,10 @@ and is held to it bitwise in every dtype. The CAC kernels
 are also held where TTA puts the valid region (flipped to the bottom
 right, and at the transposed padded shape 480 x 384). The copy kernels
 compute the identity and are held to it bitwise, with a sentinel around
-the output that must stay untouched.
+the output that must stay untouched. The int8 conv's kernels, quant_im2col
+and dequant_epilogue, round as their plain versions do and are held to
+them bitwise, alone, composed over image blocks, and in whole int8
+forwards.
 """
 import dataclasses
 import os
@@ -398,3 +401,194 @@ def test_cuda_ring_grid_and_refusals():
     # a refusal leaves no error behind for the next launch
     x.uniform_()
     assert torch.equal(kcopy.copy4d(x, 4), x)
+
+
+# ---------------------------------------------------------------------------
+# the int8 conv's kernels: quant_im2col and dequant_epilogue, bitwise
+# ---------------------------------------------------------------------------
+
+QUANT_DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.int8]
+QUANT_IDS = ["fp32", "bf16", "fp16", "int8"]
+
+
+def _quant_input(shape, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=g, device="cuda") * 3
+    sc = torch.rand((shape[-1],), generator=g, device="cuda") * 0.05 + 0.005
+    sx = torch.rand((shape[0],), generator=g, device="cuda") * 0.05 + 0.005
+    if dtype == torch.int8:
+        x = torch.randint(-127, 128, shape, generator=g, device="cuda",
+                          dtype=torch.int8)
+    else:
+        x = x.to(dtype).contiguous()
+    return x, sc, sx
+
+
+@pytest.mark.parametrize("dtype", QUANT_DTYPES, ids=QUANT_IDS)
+@pytest.mark.parametrize("k", [1, 3, 5])
+@pytest.mark.parametrize("shape", [(N, H, W, C), (3, 9, 7, 128),
+                                   (1, 1, 1, 16)],
+                         ids=["odd", "c128", "one-pixel"])
+@needs_cuda
+def test_cuda_quant_im2col_matches_plain(dtype, k, shape):
+    from codon_tpu_torch.kernels import quant as kq
+    x, sc, sx = _quant_input(shape, dtype, seed=80 + k)
+    scales = ([(None, None)] if dtype == torch.int8
+              else [(sc, None), (None, sx)])
+    for a, b in scales:
+        n0 = kq.quant_im2col.launches
+        got = kq.quant_im2col(x, k, a, b)
+        assert kq.quant_im2col.launches == n0 + 1
+        want = kq.quant_im2col_plain(x, k, a, b)
+        assert got.dtype == torch.int8 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@needs_cuda
+def test_cuda_quantize_is_the_plain_quantize(dtype):
+    """quantize_static's kernel (quant_im2col at k = 1): the codes of the
+    plain version, on values half-way between grid points too."""
+    from codon_tpu_torch.kernels import quant as kq
+    from codon_tpu_torch.quant_ops import quantize_static
+    x, sc, _ = _quant_input((N, H, W, C), dtype, seed=85)
+    x.view(-1, C)[:5] = (sc * torch.tensor([0.5, 1.5, -2.5, 300.0, -0.5],
+                                           device="cuda")[:, None]).to(dtype)
+    got = quantize_static(x, sc)
+    assert got.shape == x.shape and got.dtype == torch.int8
+    assert torch.equal(got, kq.quantize_plain(x, sc))
+    # a view that is not contiguous is quantized as its contiguous copy
+    xt = x.transpose(1, 2)
+    assert torch.equal(quantize_static(xt, sc), kq.quantize_plain(xt, sc))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@needs_cuda
+def test_cuda_dequant_epilogue_matches_plain(dtype, dynamic, masked):
+    from codon_tpu_torch.kernels import quant as kq
+    g = torch.Generator(device="cuda").manual_seed(90)
+    co = 128
+    # small sums and sums past 2^24, where int32 -> float32 rounds
+    acc = torch.randint(-2 ** 20, 2 ** 20, (N * H * W, co), generator=g,
+                        device="cuda", dtype=torch.int32)
+    acc[::7] *= 2 ** 9
+    if dtype == torch.float16:
+        # float16 holds at most 65504: sums that stay below it
+        acc = torch.div(acc, 2 ** 14, rounding_mode="floor")
+    sw = torch.rand((co,), generator=g, device="cuda") * 1e-3
+    sx = (torch.rand((N,), generator=g, device="cuda") * 0.05
+          if dynamic else None)
+    m = to_torch(cac_mask(), "cuda").to(dtype) if masked else None
+    n0 = kq.dequant_epilogue.launches
+    got = kq.dequant_epilogue(acc, sw, dtype, (N, H, W), sx, m)
+    assert kq.dequant_epilogue.launches == n0 + 1
+    want = kq.dequant_epilogue_plain(acc, sw, dtype, (N, H, W), sx, m)
+    assert got.dtype == dtype and torch.equal(got, want)
+    # into a slice of a larger output, as int8_conv's image blocks do
+    out = torch.full((N + 1, H, W, co), -1.0, device="cuda").to(dtype)
+    kq.dequant_epilogue(acc, sw, dtype, (N, H, W), sx, m, out=out[1:])
+    assert torch.equal(out[1:], want) and bool((out[0] == -1).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8], ids=["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("k", [1, 3, 5])
+@needs_cuda
+def test_cuda_int8_conv_matches_plain_over_image_blocks(dtype, k,
+                                                        monkeypatch):
+    from codon_tpu_torch.kernels import quant as kq
+    shape = (5, 37, 29, 64)
+    x, sc, sx = _quant_input(shape, dtype, seed=100 + k)
+    g = torch.Generator(device="cuda").manual_seed(101)
+    w8 = torch.randint(-127, 128, (k, k, 64, 128), generator=g,
+                       device="cuda", dtype=torch.int8)
+    sw = torch.rand((128,), generator=g, device="cuda") * 1e-3
+    m = torch.ones(shape[:3] + (1,), device="cuda")
+    m[-1, 20:] = 0
+    out_dt = torch.float32 if dtype == torch.int8 else dtype
+    scales = ([(None, None)] if dtype == torch.int8
+              else [(sc, None), (None, sx)])
+    # two images a block: blocks of 2, 2 and 1
+    monkeypatch.setattr(kq, "PATCH_BYTES_MAX", 2 * 37 * 29 * k * k * 64)
+    for a, b in scales:
+        counts = kq.launches()
+        got = kq.int8_conv(x, w8, sw, out_dt, sc=a, sx=b, mask=m)
+        after = kq.launches()
+        assert all(after[n] == counts[n] + 3 for n in counts)
+        want = kq.int8_conv(x, w8, sw, out_dt, sc=a, sx=b, mask=m,
+                            impl="plain")
+        assert kq.launches()["quant_im2col"] == after["quant_im2col"]
+        assert torch.equal(got, want)
+
+
+@needs_cuda
+def test_cuda_quant_wrappers_refuse_bad_inputs():
+    from codon_tpu_torch.kernels import quant as kq
+    x, sc, sx = _quant_input((2, 9, 7, 64), torch.float32, 110)
+    with pytest.raises(ValueError):          # C not a multiple of 16
+        kq.quant_im2col(x[..., :40].contiguous(), 3, sc[:40])
+    with pytest.raises(ValueError):          # not contiguous
+        kq.quant_im2col(x.transpose(1, 2), 3, sc)
+    with pytest.raises(ValueError):          # even kernel
+        kq.quant_im2col(x, 4, sc)
+    with pytest.raises(ValueError):          # both scales
+        kq.quant_im2col(x, 3, sc, sx)
+    with pytest.raises(ValueError):          # a scale of the wrong length
+        kq.quant_im2col(x, 3, sc[:32])
+    with pytest.raises(ValueError):          # int8 input with a scale
+        kq.quant_im2col(x.to(torch.int8), 3, sc)
+    acc = torch.zeros((2 * 9 * 7, 64), dtype=torch.int32, device="cuda")
+    ones = torch.ones(64, device="cuda")
+    with pytest.raises(ValueError):          # mask in another dtype
+        kq.dequant_epilogue(acc, ones, torch.bfloat16, (2, 9, 7),
+                            mask=torch.ones((2, 9, 7, 1), device="cuda"))
+    with pytest.raises(ValueError):          # C_out not a multiple of 8
+        kq.dequant_epilogue(acc[:, :60].contiguous(), ones[:60],
+                            torch.float32, (2, 9, 7))
+    with pytest.raises(ValueError):          # _int_mm's shape rules
+        kq.int8_gemm(torch.zeros((16, 64), dtype=torch.int8, device="cuda"),
+                     torch.zeros((64, 64), dtype=torch.int8, device="cuda"))
+
+
+@pytest.mark.parametrize("ckpt", ["x4_ship4_qat_static.npz",
+                                  "x4_ship4_qat.npz"])
+@needs_cuda
+def test_cuda_int8_forward_kernels_match_plain(ckpt):
+    """fp32 int8 forward, the quant kernels against their plain versions
+    on the card, the CAC kernels in both: bitwise (the float convs left,
+    the stems' first layers and the head, take one cuDNN algorithm under
+    deterministic mode)."""
+    from codon_tpu_torch.checkpoint.native import load_npz, params_from_numpy
+    from codon_tpu_torch.kernels import quant as kq
+    from codon_tpu_torch.quant_ops import Int8Ops, Int8StaticOps
+    tree = load_npz(os.path.join(CKPT_DIR, ckpt))
+    scales = tree.pop("act_scales", None)
+    params = params_from_numpy(tree, "cuda")
+    rng = np.random.RandomState(120)
+    d = to_torch(rng.rand(N, H, W, 1).astype(np.float32), "cuda")
+    c = to_torch(rng.rand(N, H, W, 1).astype(np.float32), "cuda")
+    m = to_torch(cac_mask(), "cuda")
+    cfg = tnet.CodonConfig(dead_heads=True, cac_impl="kernel")
+
+    def ops(impl):
+        return (Int8StaticOps(scales, quant_impl=impl) if scales is not None
+                else Int8Ops(quant_impl=impl))
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        kq.reset_launches()
+        k = tnet.codon_forward(params, d, c, mask=m, cfg=cfg, ops=ops(None))
+        counts = kq.launches()
+        p = tnet.codon_forward(params, d, c, mask=m, cfg=cfg,
+                               ops=ops("plain"))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    # 43 quantized convs a forward, one block each at this size; the
+    # static backend's 26 handoffs quantize through quant_im2col too
+    handoffs = 26 if scales is not None else 0
+    assert counts == {"quant_im2col": 43 + handoffs, "dequant_epilogue": 43,
+                      "int8_gemm": 43}
+    assert bool(torch.isfinite(k).all()) and torch.equal(k, p)
