@@ -70,9 +70,37 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
      x4_ship4_qat) with --tta through the cli's own forward and holds it
      against the mean of its members, then runs it as `cli eval` with the
      counters;
- 16. prints the card's line again, the kernels' JSON line (eight kernels),
+ 16. writes x4_ship4.npz as the reference's .pth three ways (a state
+     dict; {"epoch", "model"} with DataParallel's module. prefix; a pickled
+     stand-in module) and runs `cli eval --ckpt` on each, the CAC counters
+     set to 0 just before and read just after each: the same PNGs and
+     metrics as the .npz eval, bit for bit (cuDNN deterministic);
+ 17. runs `cli convert` on each .pth: x4_ship4.npz's arrays again;
+ 18. runs `cli eval --variant codon_fused` (the merged-tower forward: the
+     CAC kernels on the halves of one (N, H, W, 2C) tensor), then with
+     --tta8 --device-metrics, with the CAC counters, and the fp32 fused
+     forward of the first batch through the kernels against its plain
+     stage and against the packed forward;
+ 19. runs the fp32 int8 fused forward, the quant kernels against their
+     plain versions: bitwise;
+ 20. runs `cli eval --variant codon_fused --dtype int8` (its grouped int8
+     convs: a quantize and a windowed gather, GEMM and epilogue a group)
+     with the CAC and quant counters;
+ 21. runs `cli eval --variant rmcr_fuse_rmcr` in bf16 (no CAC launch) and
+     int8, with the counters;
+ 22. runs `cli eval --resume` twice (the second writes the all-done stub),
+     `--profile`, `--check-nans` on a checkpoint with one NaN weight (it
+     must raise FloatingPointError naming the site), `golden` on the main
+     eval's PNGs and `info`;
+ 23. prints the card's line again, the kernels' JSON line (eight kernels),
      then the contract line {"ok": true, "device": {...}} as the last line
      of its output.
+
+Phase 3 also holds cac_stats and cac_apply against their plain versions
+on the halves of a (N, H, W, 2C) tensor (a tower pitch of 2C) at the main
+and TTA8 shapes, and quant_im2col and dequant_epilogue on each group's
+channel and output window at every grouped shape of the b4 codon_fused
+forward, bitwise, each timed beside the contiguous kernel.
 
 Any failed check raises: the script then exits non-zero and prints no
 result. It also exits non-zero, printing nothing on stdout, without a CUDA
@@ -189,6 +217,21 @@ INT8_CONVS = ((3, 64, 2), (5, 64, 10), (5, 128, 10), (1, 128, 10),
 # stages, packed_f before each of the 3 fuse stages) and 13 roundtrips
 # (the 2 stems, the 2 gates of each of the 5 stages, conv7's output)
 INT8_HANDOFFS = 26
+# the quantized conv calls of one codon_fused forward, (k, C_in, groups,
+# C_out, calls): the grouped conv_input+conv_input_c, then conv1+conv5,
+# conv2+conv4, conv3+conv6 and confuse+confuse_c in each of the 5 stages;
+# conv7, conv8, conv9, conv10 and confuse_fuse x 3, conv11 ungrouped. The
+# merged-tower forward has no handoffs.
+FUSED_INT8_CONVS = ((3, 128, 2, 128, 1), (3, 128, 2, 128, 5),
+                    (5, 128, 2, 128, 5), (5, 256, 2, 256, 5),
+                    (1, 256, 2, 128, 5), (3, 128, 1, 64, 1),
+                    (5, 64, 1, 64, 3), (3, 64, 1, 64, 3), (5, 128, 1, 128, 3),
+                    (1, 128, 1, 64, 3), (3, 64, 1, 64, 1))
+# fp32 merged-tower forward against the packed one on the card: the
+# tolerance tests/test_model_parity.py holds the JAX package's two forms to
+FUSED_TOL = (2e-4, 1e-3)
+# the three forms of a reference .pth that phase 16 writes
+PTH_KINDS = ("state_dict", "epoch_model_module_prefix", "full_module")
 # file:line of each kernel's pallas_call
 REPLACES = {"cac_stats": "codon_tpu/kernels/cac.py:143",
             "spatial_logits": "codon_tpu/kernels/cac.py:193",
@@ -497,13 +540,13 @@ def write_scale_dir(root: str, seed: int = 0):
 
 
 def eval_once(data: str, out: str, jpath: str, batch: int, extra=(),
-              ckpt: str = CKPT, dtype: str = "bf16"):
+              ckpt: str = CKPT, dtype: str = "bf16", variant: str = "codon"):
     """One in-process `cli eval`, bf16 (or `dtype`) -> (summary, wall
     seconds)."""
     from codon_tpu_torch import cli
     t0 = time.time()
     rc = cli.main(["eval", "--scale", "4", "--data-dir", data,
-                   "--ckpt", ckpt, "--variant", "codon", "--batch",
+                   "--ckpt", ckpt, "--variant", variant, "--batch",
                    str(batch), "--dtype", dtype, "--out", out,
                    "--json", jpath, "--device", DEVICE, *extra])
     wall = time.time() - t0
@@ -1204,6 +1247,600 @@ def run_int8_ensemble(kc, kq, data: str, tmp: str):
          "the int8 ensemble eval's means are not finite")
     return diff, spread, summary, wall, counts
 
+# ---------------------------------------------------------------------------
+# phases 16-17: the reference's .pth checkpoints
+# ---------------------------------------------------------------------------
+
+def refnet(state_dict):
+    """A stand-in for the reference's pickled model: a module tree whose
+    state dict carries `state_dict`'s names and values, and no forward.
+    The class is made at first use (torch is imported lazily) and bound
+    to this module's name, so that a pickle of it loads again here."""
+    import torch
+    cls = globals().get("RefNet")
+    if cls is None:
+        class RefNet(torch.nn.Module):
+            def __init__(self, sd):
+                super().__init__()
+                for key, value in sd.items():
+                    *path, leaf = key.split(".")
+                    mod = self
+                    for part in path:
+                        if part not in mod._modules:
+                            mod.add_module(part, torch.nn.Module())
+                        mod = mod._modules[part]
+                    mod.register_parameter(leaf, torch.nn.Parameter(
+                        value, requires_grad=False))
+        RefNet.__qualname__ = "RefNet"
+        globals()["RefNet"] = cls = RefNet
+    return cls(state_dict)
+
+
+def write_pth_files(tmp: str):
+    """x4_ship4.npz under the reference's names, three ways: a plain state
+    dict, {"epoch", "model": <state dict with DataParallel's module.
+    prefix>}, and a pickled stand-in module. -> {kind: path}."""
+    import numpy as np
+    import torch
+    from codon_tpu_torch.checkpoint.native import load_npz
+    from codon_tpu_torch.checkpoint.torch_convert import (
+        params_to_torch_state_dict)
+    from codon_tpu_torch.models.codon_net import CodonConfig
+    cfg = CodonConfig(dead_heads=True)
+    tree = load_npz(CKPT)
+
+    def tensors(sd):
+        return {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in sd.items()}
+
+    sd = tensors(params_to_torch_state_dict(tree, cfg))
+    paths = {k: os.path.join(tmp, f"x4_ship4_{k}.pth")
+             for k in PTH_KINDS}
+    torch.save(sd, paths["state_dict"])
+    torch.save({"epoch": 40, "model": tensors(params_to_torch_state_dict(
+        tree, cfg, module_prefix=True))}, paths["epoch_model_module_prefix"])
+    torch.save(refnet(sd), paths["full_module"])
+    return paths
+
+
+def same_trees(a, b) -> bool:
+    import numpy as np
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict)
+                and sorted(a) == sorted(b)
+                and all(same_trees(a[k], b[k]) for k in a))
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def run_pth_path(kc, data: str, tmp: str):
+    """`cli eval --ckpt` on each .pth (bf16, batch 4, the CAC counts set to
+    0 just before and read just after each) against `--ckpt x4_ship4.npz`:
+    the same PNGs and metrics, bit for bit (cuDNN deterministic in all
+    four); then `cli convert` of each back to the checkpoint's arrays.
+    -> {kind: (summary, wall, counts)}."""
+    import numpy as np
+    import torch
+    from codon_tpu_torch import cli
+    from codon_tpu_torch.checkpoint.native import load_npz
+    from codon_tpu_torch.data.io import imread_gray
+    paths = write_pth_files(tmp)
+    batches = -(-len(SCENES) // 4)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        ref_out = os.path.join(tmp, "pth_ref")
+        ref, _ = eval_once(data, ref_out, os.path.join(tmp, "pth_ref.json"),
+                           4)
+        for kind, path in paths.items():
+            out = os.path.join(tmp, f"pth_{kind}")
+            kc.reset_launches()
+            summary, wall = eval_once(data, out, out + ".json", 4,
+                                      ckpt=path)
+            counts = kc.launches()
+            need(summary["per_image"] == ref["per_image"],
+                 f".pth eval ({kind}) scored differently from the .npz "
+                 f"eval")
+            for row in ref["per_image"]:
+                a, b = (imread_gray(os.path.join(d, row["name"] + ".png"))
+                        for d in (out, ref_out))
+                need(np.array_equal(a, b), f".pth eval ({kind}) wrote "
+                     f"another {row['name']}.png than the .npz eval")
+            for name, count in counts.items():
+                need(count == 5 * batches, f".pth eval ({kind}): {name} "
+                     f"launched {count} times; expected {5 * batches}")
+            npz = os.path.join(tmp, f"converted_{kind}.npz")
+            need(cli.main(["convert", "--pth", path, "--npz", npz]) == 0,
+                 f"cli convert of the {kind} .pth failed")
+            need(same_trees(load_npz(npz), load_npz(CKPT)),
+                 f"cli convert of the {kind} .pth gave other arrays than "
+                 f"x4_ship4.npz")
+            runs[kind] = (summary, wall, counts)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phases 18-20: the merged-tower forward (codon_fused), float and int8
+# ---------------------------------------------------------------------------
+
+def make_merged_inputs(shape, valid, dtype, seed):
+    """T and inputs2, (N, H, W, 2C) zero on padding, whose halves are the
+    towers, as the merged-tower forward hands them to the CAC kernels; and
+    the rest of a stage's inputs. valid as in `make_mask`."""
+    import torch
+    n, h, w, c = shape
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    mask = make_mask(shape, valid)
+    T, inputs2 = [(torch.randn((n, h, w, 2 * c), generator=g, device=DEVICE)
+                   * mask).to(dtype).contiguous() for _ in range(2)]
+    gate = torch.rand((n, 1, c), generator=g, device=DEVICE)
+    logits = torch.randn((n, h, w), generator=g, device=DEVICE).to(dtype)
+    return T, inputs2, mask.to(dtype), gate, logits
+
+
+def check_pitched_kernels(kc):
+    """cac_stats and cac_apply on the halves of T (a tower pitch of 2C),
+    cac_apply writing both halves of the next T, against their plain
+    versions on the same views, at the fused eval's shape and both TTA8
+    shapes, every dtype, the contiguous checks' tolerances. ->
+    {name: [check, ...]}."""
+    import torch
+    checks = {"cac_stats": [], "cac_apply": []}
+    seed = 500
+    for dname, (atol, rtol) in TOLS.items():
+        dtype = getattr(torch, dname)
+        for shape, valid in (STAGE_CASES[0],) + STAGE_CASES[2:]:
+            seed += 1
+            c = shape[-1]
+            T, inputs2, mask, gate, logits = make_merged_inputs(
+                shape, valid, dtype, seed)
+            halves = (T[..., :c], T[..., c:], inputs2[..., :c],
+                      inputs2[..., c:])
+            npix = shape[1] * shape[2]
+            for m in (mask, None):
+                got = kc.cac_stats(halves[0], halves[1], m)
+                want = kc.cac_stats_plain(halves[0], halves[1], m)
+                err_f32, ok_f32 = max_err(
+                    (got[0] / npix, got[1]), (want[0] / npix, want[1]),
+                    *TOLS["float32"])
+                err, ok = max_err(got[2:], want[2:], atol, rtol)
+                checks["cac_stats"].append(
+                    {"dtype": dname, "shape": list(shape), "pitch": 2 * c,
+                     "mask": m is not None, "max_abs_err": max(err, err_f32),
+                     "ok": ok and ok_f32})
+            nxt = torch.full_like(T, float("nan"))
+            want_t = torch.full_like(T, float("nan"))
+            kc.cac_apply(*halves, gate, logits,
+                         dst=(nxt[..., :c], nxt[..., c:]))
+            kc.cac_apply_plain(*halves, gate, logits,
+                               dst=(want_t[..., :c], want_t[..., c:]))
+            err, ok = max_err([nxt], [want_t], atol, rtol)
+            checks["cac_apply"].append(
+                {"dtype": dname, "shape": list(shape), "pitch": 2 * c,
+                 "max_abs_err": err,
+                 "ok": ok and not bool(torch.isnan(nxt).any())})
+            del T, inputs2, nxt, want_t
+        torch.cuda.empty_cache()
+    return checks
+
+
+def time_pitched_kernels(kc, timings):
+    """bf16 device time a launch (a CUDA graph of back-to-back calls) of
+    cac_stats and cac_apply on the halves of T, at the main and both TTA8
+    shapes, beside the contiguous kernels' at the same shape and in the
+    same run (`timings`, from `time_kernels`). The bound is the
+    contiguous one: the same bytes move. -> {name: [row, ...]}."""
+    import torch
+    rows = {"cac_stats": [], "cac_apply": []}
+    for i, (shape, valid) in enumerate((STAGE_CASES[0],) + STAGE_CASES[2:]):
+        c = shape[-1]
+        T, inputs2, mask, gate, logits = make_merged_inputs(
+            shape, valid, torch.bfloat16, 600 + i)
+        halves = (T[..., :c], T[..., c:], inputs2[..., :c], inputs2[..., c:])
+        nxt = torch.empty_like(T)
+        calls = {
+            "cac_stats": lambda: kc.cac_stats(halves[0], halves[1], mask),
+            "cac_apply": lambda: kc.cac_apply(
+                *halves, gate, logits, dst=(nxt[..., :c], nxt[..., c:]))}
+        for name, fn in calls.items():
+            flat = timings[name]["by_shape"][i]
+            need(flat["shape"] == list(shape), "shape order of time_kernels")
+            rows[name].append({
+                "shape": list(shape), "pitch": 2 * c,
+                "device_ms": graph_ms(fn),
+                "contiguous_device_ms": flat["device_ms"],
+                "bound_ms": flat["bound_ms"], "bound_by": flat["bound_by"]})
+        del T, inputs2, nxt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_fused_path(kc, data: str, tmp: str):
+    """`cli eval --variant codon_fused` (bf16, batch 4), then with --tta8
+    --device-metrics, each with the CAC counts set to 0 just before and
+    read just after: 5 launches of each kernel a forward; the TTA8 eval's
+    metrics held as the packed TTA8 eval's."""
+    n_images = len(SCENES)
+    batches = -(-n_images // 4)
+    kc.reset_launches()
+    summary, wall = eval_once(data, os.path.join(tmp, "fused"),
+                              os.path.join(tmp, "fused.json"), 4,
+                              variant="codon_fused")
+    counts = kc.launches()
+    need(len(summary["per_image"]) == n_images and
+         all(math.isfinite(r["rmse"]) and math.isfinite(r["ssim"])
+             for r in summary["per_image"]),
+         "the codon_fused eval did not score every image")
+    need(len(os.listdir(os.path.join(tmp, "fused"))) == n_images,
+         "the codon_fused eval did not write every PNG")
+    for name, count in counts.items():
+        need(count == 5 * batches, f"codon_fused eval: {name} launched "
+             f"{count} times; expected {5 * batches} (5 CAC stages a "
+             f"forward)")
+    out = os.path.join(tmp, "fused_tta8")
+    kc.reset_launches()
+    tta, tta_wall = eval_once(data, out, out + ".json", 4,
+                              ["--tta8", "--device-metrics"],
+                              variant="codon_fused")
+    tta_counts = kc.launches()
+    need(tta["tta_transforms"] == 8, "the codon_fused eval did not run TTA8")
+    for name, count in tta_counts.items():
+        need(count == 2 * 5 * batches, f"codon_fused TTA8 eval: {name} "
+             f"launched {count} times; expected {2 * 5 * batches}")
+    gaps = check_device_metrics(tta, data, out)
+    return summary, wall, counts, tta, tta_wall, tta_counts, gaps
+
+
+def compare_fused_paths(data: str):
+    """fp32 on the first batch: the merged-tower forward with the CAC
+    kernels on the halves of T against its plain stage (FWD_TOL), and
+    against the packed `codon` forward (the JAX test's 2e-4 / 1e-3). ->
+    (max |d| kernels vs plain, max |d| fused vs packed)."""
+    import dataclasses
+    import torch
+    from codon_tpu_torch.checkpoint.native import load_npz, params_from_numpy
+    from codon_tpu_torch.models.codon_net import (CodonConfig, codon_forward,
+                                                  codon_forward_fused)
+    params = params_from_numpy(load_npz(CKPT), DEVICE)
+    b = first_batch(data)
+    cfg = CodonConfig(dead_heads=True)
+    kern = codon_forward_fused(params, b.depth, b.color, mask=b.mask,
+                               cfg=dataclasses.replace(cfg,
+                                                       cac_impl="kernel"))
+    plain = codon_forward_fused(params, b.depth, b.color, mask=b.mask,
+                                cfg=dataclasses.replace(cfg,
+                                                        cac_impl="torch"))
+    packed = codon_forward(params, b.depth, b.color, mask=b.mask, cfg=cfg)
+    need(bool(torch.isfinite(kern).all()), "non-finite fp32 fused forward")
+    d_paths = float((kern - plain).abs().max())
+    need(d_paths <= FWD_TOL, f"fp32 fused forward, kernels vs plain stage: "
+         f"max abs diff {d_paths} > {FWD_TOL}")
+    d_packed = float((kern - packed).abs().max())
+    need(bool(torch.allclose(kern, packed, atol=FUSED_TOL[0],
+                             rtol=FUSED_TOL[1])),
+         f"fp32 fused forward vs packed: max abs diff {d_packed}, outside "
+         f"{FUSED_TOL}")
+    return d_paths, d_packed
+
+
+def fused_int8_launches(kq, n, h, w):
+    """{quant_im2col, dequant_epilogue} launches of one codon_fused int8
+    forward of n images at h x w: a grouped site quantizes a block of
+    images once, then gathers, multiplies and dequantizes each group; an
+    ungrouped one runs each once a block. The GEMMs are the epilogues."""
+    im2col = conv = 0
+    for k, c, groups, _, calls in FUSED_INT8_CONVS:
+        blocks = len(kq.image_blocks(n, h, w, k * k * c // groups))
+        im2col += calls * blocks * (groups + 1 if groups > 1 else 1)
+        conv += calls * blocks * groups
+    return {"quant_im2col": im2col, "dequant_epilogue": conv,
+            "int8_gemm": conv}
+
+
+def grouped_sites():
+    """The distinct grouped int8 conv shapes of a codon_fused forward,
+    (k, C_in, groups, C_out, calls a forward)."""
+    sites = {}
+    for k, c, groups, co, calls in FUSED_INT8_CONVS:
+        if groups > 1:
+            sites[(k, c, groups, co)] = sites.get((k, c, groups, co), 0) + \
+                calls
+    return [(*key, calls) for key, calls in sites.items()]
+
+
+def check_windowed_quant_kernels(kq):
+    """At every grouped int8 site of the b4 codon_fused forward (one block
+    of images): quant_im2col on each group's channel window (float32 and
+    bfloat16 input, static and dynamic scales; int8 input, the gather
+    alone) and dequant_epilogue into each group's output window (float32
+    and bfloat16, static and dynamic, masked), bitwise against their plain
+    versions. -> {name: [check, ...]}."""
+    import torch
+    checks = {"quant_im2col": [], "dequant_epilogue": []}
+    n, h, w = MAIN_SHAPE[:3]
+    for i, (k, c, groups, co, _) in enumerate(grouped_sites()):
+        cg, cog = c // groups, co // groups
+        nb = kq.image_blocks(n, h, w, k * k * cg)[0][1]
+        shape = (nb, h, w, c)
+        x, sc, sx, mask, _, _ = quant_inputs(shape, MAIN_VALID[:nb], 700 + i)
+        for dname in ("float32", "bfloat16", "int8"):
+            dtype = getattr(torch, dname)
+            xd = (kq.quantize_plain(x, sc) if dtype == torch.int8
+                  else x.to(dtype).contiguous())
+            modes = ([("none", None, None)] if dtype == torch.int8 else
+                     [("channel", sc, None), ("sample", None, sx)])
+            for mode, a, b in modes:
+                for g in range(groups):
+                    got = kq.quant_im2col(xd, k, a, b, c0=g * cg, cg=cg)
+                    want = kq.quant_im2col_plain(xd, k, a, b, c0=g * cg,
+                                                 cg=cg)
+                    same = torch.equal(got, want)
+                    checks["quant_im2col"].append(
+                        {"dtype": dname, "shape": list(shape), "k": k,
+                         "window": [g * cg, (g + 1) * cg], "mode": mode,
+                         "bitwise": same, "ok": same, "max_abs_err": float(
+                             (got.float() - want.float()).abs().max())})
+                    del got, want
+            del xd
+        del x
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=DEVICE).manual_seed(750 + i)
+        acc = torch.randint(-2 ** 20, 2 ** 20, (nb * h * w, cog),
+                            generator=gen, device=DEVICE, dtype=torch.int32)
+        sw = torch.rand((cog,), generator=gen, device=DEVICE) * 1e-3
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            for mode, b in (("static", None), ("dynamic", sx)):
+                for g in range(groups):
+                    got = torch.zeros((nb, h, w, co), dtype=dtype,
+                                      device=DEVICE)
+                    want = torch.zeros_like(got)
+                    kq.dequant_epilogue(acc, sw, dtype, (nb, h, w), b,
+                                        mask.to(dtype), out=got, o0=g * cog)
+                    kq.dequant_epilogue_plain(acc, sw, dtype, (nb, h, w), b,
+                                              mask.to(dtype), out=want,
+                                              o0=g * cog)
+                    same = torch.equal(got, want)
+                    checks["dequant_epilogue"].append(
+                        {"dtype": dname, "shape": [nb, h, w, co],
+                         "window": [g * cog, (g + 1) * cog], "mode": mode,
+                         "mask": True, "bitwise": same, "ok": same,
+                         "max_abs_err": float((got.float() - want.float())
+                                              .abs().max())})
+                    del got, want
+        del acc
+        torch.cuda.empty_cache()
+    return checks
+
+
+def time_windowed_quant(kq):
+    """bf16, at each grouped int8 site of the b4 codon_fused forward (one
+    block of images): the device time a launch of the gather of one
+    group's channel window (int8 codes of all C channels in) beside the
+    same gather of a contiguous cg-channel tensor, of the quantize pass
+    over all C (quant_im2col at k = 1), and of dequant_epilogue into one
+    group's output window beside a contiguous output; each with its byte
+    bound and its launches a forward. -> [row, ...]."""
+    import torch
+    n, h, w = MAIN_SHAPE[:3]
+    bf = torch.bfloat16
+    g = torch.Generator(device=DEVICE).manual_seed(800)
+    mask = make_mask(MAIN_SHAPE, MAIN_VALID).to(bf)
+    rows = []
+    for k, c, groups, co, calls in grouped_sites():
+        cg, cog = c // groups, co // groups
+        blocks = kq.image_blocks(n, h, w, k * k * cg)
+        nb = blocks[0][1]
+        pix = nb * h * w
+        x = (torch.randn((nb, h, w, c), generator=g, device=DEVICE) * 3
+             ).to(bf)
+        sc = torch.rand((c,), generator=g, device=DEVICE) * 0.05 + 0.005
+        codes = kq.quantize_plain(x, sc)
+        flat = codes[..., :cg].contiguous()
+        acc = torch.randint(-2 ** 20, 2 ** 20, (pix, cog), generator=g,
+                            device=DEVICE, dtype=torch.int32)
+        sw = torch.rand((cog,), generator=g, device=DEVICE) * 1e-3
+        m = mask[:nb].contiguous()
+        out = torch.empty((nb, h, w, co), dtype=bf, device=DEVICE)
+        launches = calls * len(blocks)
+        gather_bytes = pix * cg + pix * k * k * cg
+        quant_bytes = pix * c * 2 + pix * c
+        ep_bytes = pix * cog * 4 + pix * 2 + pix * cog * 2
+        rows.append({
+            "k": k, "c_in": c, "groups": groups, "c_out": co,
+            "shape": [nb, h, w, c], "launches_a_forward": {
+                "gather": launches * groups, "quantize": launches,
+                "epilogue": launches * groups},
+            "gather_device_ms": graph_ms(
+                lambda: kq.quant_im2col(codes, k, c0=cg, cg=cg)),
+            "gather_contiguous_device_ms": graph_ms(
+                lambda: kq.quant_im2col(flat, k)),
+            "gather_bound_ms": bound(gather_bytes, 0)[0],
+            "quantize_device_ms": graph_ms(
+                lambda: kq.quant_im2col(x, 1, sc)),
+            "quantize_bound_ms": bound(quant_bytes, x.numel())[0],
+            "epilogue_device_ms": graph_ms(
+                lambda: kq.dequant_epilogue(acc, sw, bf, (nb, h, w), None, m,
+                                            out=out, o0=cog)),
+            "epilogue_contiguous_device_ms": graph_ms(
+                lambda: kq.dequant_epilogue(acc, sw, bf, (nb, h, w), None,
+                                            m)),
+            "epilogue_bound_ms": bound(ep_bytes, 3 * pix * cog)[0]})
+        del x, codes, flat, acc, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_fused_int8_path(kc, kq, data: str, tmp: str):
+    """`cli eval --variant codon_fused --dtype int8` with
+    x4_ship4_qat_static (its compound sites resolve through the aliases),
+    the counts set to 0 just before and read just after."""
+    n_images = len(SCENES)
+    batches = -(-n_images // 4)
+    out = os.path.join(tmp, "fused_int8")
+    reset_counts(kc, kq)
+    summary, wall = eval_once(data, out, out + ".json", 4, ckpt=CKPT_INT8,
+                              dtype="int8", variant="codon_fused")
+    counts = read_counts(kc, kq)
+    need(len(summary["per_image"]) == n_images and
+         all(math.isfinite(r["rmse"]) and math.isfinite(r["ssim"])
+             for r in summary["per_image"]),
+         "the codon_fused int8 eval did not score every image")
+    want = {k: batches * v for k, v in
+            fused_int8_launches(kq, *MAIN_SHAPE[:3]).items()}
+    want.update({k: 5 * batches for k in kc.launches()})
+    for name, n in want.items():
+        need(counts[name] == n, f"codon_fused int8 eval: {name} launched "
+             f"{counts[name]} times; expected {n}")
+    return summary, wall, counts
+
+
+def compare_fused_int8_paths(data: str):
+    """fp32 int8 codon_fused forward of the first batch (x4_ship4_qat_
+    static), the quant kernels against their plain versions, the CAC
+    kernels in both, under cuDNN's deterministic mode: bitwise. -> max
+    |d|."""
+    import dataclasses
+    import torch
+    from codon_tpu_torch.checkpoint.native import load_npz, params_from_numpy
+    from codon_tpu_torch.models.variants import get_variant
+    tree = load_npz(CKPT_INT8)
+    tree.pop("act_scales")
+    params = params_from_numpy(tree, DEVICE)
+    b = first_batch(data)
+    v = get_variant("codon_fused")
+    cfg = dataclasses.replace(v.cfg, cac_impl="kernel")
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        outs = [v.forward_fn(params, b.depth, b.color, mask=b.mask, cfg=cfg,
+                             ops=static_int8_ops(torch.float32, impl))
+                for impl in (None, "plain")]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    need(bool(torch.isfinite(outs[0]).all()),
+         "non-finite fp32 fused int8 forward")
+    diff = float((outs[0] - outs[1]).abs().max())
+    need(torch.equal(outs[0], outs[1]), f"fp32 fused int8 forward, quant "
+         f"kernels vs plain: max abs diff {diff}, not bitwise")
+    return diff
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the sequential-tower forward (rmcr_fuse_rmcr)
+# ---------------------------------------------------------------------------
+
+def run_sequential_path(kc, kq, data: str, tmp: str):
+    """`cli eval --variant rmcr_fuse_rmcr` in bf16 (no CAC kernel may
+    launch) and in int8 with x4_ship4_qat_static (the quant kernels at
+    each of its 43 convs a forward, no handoffs), each with the counts set
+    to 0 just before and read just after."""
+    n_images = len(SCENES)
+    batches = -(-n_images // 4)
+    runs = {}
+    for dtype, ckpt in (("bf16", CKPT), ("int8", CKPT_INT8)):
+        out = os.path.join(tmp, f"rmcr_{dtype}")
+        reset_counts(kc, kq)
+        summary, wall = eval_once(data, out, out + ".json", 4, ckpt=ckpt,
+                                  dtype=dtype, variant="rmcr_fuse_rmcr")
+        counts = read_counts(kc, kq)
+        need(len(summary["per_image"]) == n_images and
+             all(math.isfinite(r["rmse"]) and math.isfinite(r["ssim"])
+                 for r in summary["per_image"]),
+             f"the rmcr_fuse_rmcr {dtype} eval did not score every image")
+        conv = (batches * int8_launches(kq, *MAIN_SHAPE[:3])
+                if dtype == "int8" else 0)
+        need_int8_counts(counts, 0, conv, 0, f"rmcr_fuse_rmcr {dtype} eval")
+        runs[dtype] = (summary, wall, counts)
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the rest of the cli
+# ---------------------------------------------------------------------------
+
+def cli_said(argv):
+    """-> (return code, what `cli.main(argv)` printed)."""
+    import contextlib
+    import io
+    from codon_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def run_cli_tools(data: str, tmp: str, main_out: str, main_summary):
+    """`eval --resume` twice (the second finds every PNG and writes the
+    all-done stub), `eval --profile`, `eval --check-nans` on x4_ship4 with
+    one NaN weight (it must fail through FloatingPointError naming the
+    site), `golden` on the main eval's PNGs, and `info`. -> a dict of what
+    each showed."""
+    import shutil
+    import numpy as np
+    from codon_tpu_torch.checkpoint.native import load_npz, save_npz
+    res = {}
+    out = os.path.join(tmp, "resume")
+    first, _ = eval_once(data, out, out + "1.json", 4, ["--resume"])
+    need(first["images"] == len(SCENES) and "resumed_all" not in first,
+         "the first --resume eval did not run every image")
+    stub, _ = eval_once(data, out, out + "2.json", 4, ["--resume"])
+    need(stub.get("resumed_all") is True and stub["images"] == 0
+         and stub["mean_rmse"] is None
+         and set(stub) == set(first) | {"resumed_all"},
+         f"the second --resume eval wrote no all-done stub: {stub}")
+    res["resume"] = {"first_images": first["images"], "stub": stub}
+
+    prof = os.path.join(tmp, "profile")
+    eval_once(data, os.path.join(tmp, "prof_out"), prof + ".json", 4,
+              ["--profile", prof, "--no-save"])
+    trace = os.path.join(prof, "trace.json")
+    need(os.path.exists(trace), "--profile wrote no trace")
+    with open(trace) as f:
+        text = f.read()
+    need("cac_apply_kernel" in text, "the --profile trace holds no CAC "
+         "kernel launch")
+    res["profile_trace_bytes"] = len(text)
+
+    bad = os.path.join(tmp, "x4_ship4_nan.npz")
+    tree = load_npz(CKPT)
+    tree["conv3"] = tree["conv3"].copy()
+    tree["conv3"][1, 2, 3, 4] = np.nan
+    save_npz(bad, tree)
+    try:
+        eval_once(data, os.path.join(tmp, "nan_out"), bad + ".json", 4,
+                  ["--check-nans"], ckpt=bad)
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    need(raised is not None and "conv site 'conv3'" in raised,
+         f"--check-nans on a NaN conv3 weight: {raised!r}")
+    res["check_nans"] = raised
+
+    gdir = os.path.join(tmp, "golden", "CODON_X4")
+    shutil.copytree(os.path.join(data, "input_label"),
+                    os.path.join(gdir, "input_label"))
+    shutil.copytree(main_out, os.path.join(gdir, "output"))
+    rc, said = cli_said(["golden", "--data-dir", gdir])
+    lines = said.strip().splitlines()
+    need(rc == 0 and lines[-2] == str(len(SCENES)),
+         f"golden printed {lines[-2:]}")
+    g_rmse, g_ssim = (float(v) for v in lines[-1].split())
+    need(g_rmse == main_summary["mean_rmse"]
+         and g_ssim == main_summary["mean_ssim"],
+         f"golden on the main eval's PNGs: {g_rmse} {g_ssim}, the eval "
+         f"scored {main_summary['mean_rmse']} {main_summary['mean_ssim']}")
+    res["golden"] = lines[-1]
+
+    rc, said = cli_said(["info"])
+    need(rc == 0 and "variant 'codon': 1,866,136 params" in said
+         and "codon_fused" in said and "rmcr_fuse_rmcr" in said,
+         f"info printed {said!r}")
+    res["info"] = said.strip().splitlines()
+    return res
+
 
 def main() -> int:
     try:
@@ -1272,6 +1909,27 @@ def main() -> int:
     for r in timings["spatial_logits"]["small"]:
         say(f"device spatial_logits {tuple(r['shape'])}: "
             f"{r['device_ms'] * 1e3:.2f} us a launch")
+    # 3, the merged-tower layout: cac_stats and cac_apply on the halves of
+    # one (N, H, W, 2C) tensor
+    pchecks = check_pitched_kernels(kc)
+    for name, rows in pchecks.items():
+        for r in rows:
+            say(f"check {name} pitch {r['pitch']} {r['dtype']} "
+                f"{tuple(r['shape'])}"
+                + (f" mask={r['mask']}" if "mask" in r else "")
+                + f": max_abs_err {r['max_abs_err']:.3e} "
+                  f"{'ok' if r['ok'] else 'FAIL'}")
+    bad = [(n, r) for n, rows in pchecks.items() for r in rows
+           if not r["ok"]]
+    need(not bad, f"{len(bad)} pitched kernel checks out of tolerance: "
+         f"{bad}")
+    ptimes = time_pitched_kernels(kc, timings)
+    for name, rows in ptimes.items():
+        for r in rows:
+            say(f"device {name} pitch {r['pitch']} {tuple(r['shape'])}: "
+                f"{r['device_ms'] * 1e3:.2f} us a launch, contiguous "
+                f"{r['contiguous_device_ms'] * 1e3:.2f} us; bound "
+                f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}")
     say(f"kernel checks and timings: {time.time() - t0:.1f} s")
 
     # 3, the int8 conv's kernels: bitwise against their plain versions,
@@ -1311,6 +1969,31 @@ def main() -> int:
     gemm_bound = sum(r["bound_ms"] * r["calls_a_forward"] for r in gemms)
     say(f"gemm, a b4 int8 forward: {gemm_ms:.4f} ms over its calls; bound "
         f"{gemm_bound:.4f} ms")
+    # 3, the grouped int8 convs of codon_fused: channel and output windows
+    wchecks = check_windowed_quant_kernels(kq)
+    for name, rows in wchecks.items():
+        for r in rows:
+            say(f"check {name} window {r['window']} {r['dtype']} "
+                f"{tuple(r['shape'])} "
+                + (f"k={r['k']} " if "k" in r else "")
+                + f"{r['mode']} bitwise {r['bitwise']}: max_abs_err "
+                  f"{r['max_abs_err']:.3e} {'ok' if r['ok'] else 'FAIL'}")
+    bad = [(n, r) for n, rows in wchecks.items() for r in rows
+           if not r["ok"]]
+    need(not bad, f"{len(bad)} windowed quant checks not bitwise: {bad}")
+    wtimes = time_windowed_quant(kq)
+    for r in wtimes:
+        say(f"device grouped site k={r['k']} C={r['c_in']}->{r['c_out']} "
+            f"x{r['groups']} {tuple(r['shape'])}: gather of a window "
+            f"{r['gather_device_ms'] * 1e3:.2f} us (contiguous "
+            f"{r['gather_contiguous_device_ms'] * 1e3:.2f}, bound "
+            f"{r['gather_bound_ms'] * 1e3:.2f}); quantize all C "
+            f"{r['quantize_device_ms'] * 1e3:.2f} us (bound "
+            f"{r['quantize_bound_ms'] * 1e3:.2f}); epilogue into a window "
+            f"{r['epilogue_device_ms'] * 1e3:.2f} us (contiguous "
+            f"{r['epilogue_contiguous_device_ms'] * 1e3:.2f}, bound "
+            f"{r['epilogue_bound_ms'] * 1e3:.2f}); launches a b4 forward "
+            f"{r['launches_a_forward']}")
     say(f"quant kernel checks and timings: {time.time() - t0:.1f} s")
 
     # 4. the main path
@@ -1438,10 +2121,80 @@ def main() -> int:
             f"mean RMSE {i8e['mean_rmse']}, mean SSIM {i8e['mean_ssim']}, "
             f"{i8e_wall:.1f} s wall; launches {i8e_counts}")
 
-    # 16. results
+        # 16-17. the reference's .pth checkpoints: eval and convert
+        t0 = time.time()
+        pth_runs = run_pth_path(kc, data, tmp)
+        for kind, (r, r_wall, r_counts) in pth_runs.items():
+            say(f"pth path ({kind}): cli eval bf16 b4 mean RMSE "
+                f"{r['mean_rmse']}, mean SSIM {r['mean_ssim']}, "
+                f"{r_wall:.1f} s wall, PNGs and metrics bitwise equal to "
+                f"the .npz eval; cli convert gives x4_ship4.npz's arrays; "
+                f"launches {r_counts}")
+        say(f"pth phases: {time.time() - t0:.1f} s")
+
+        # 18. the merged-tower forward: float evals, fp32 forwards
+        fu, fu_wall, fu_counts, fut, fut_wall, fut_counts, fu_gaps = \
+            run_fused_path(kc, data, tmp)
+        say(f"fused path: cli eval --variant codon_fused bf16 b4, mean RMSE "
+            f"{fu['mean_rmse']}, mean SSIM {fu['mean_ssim']}, "
+            f"{fu_wall:.1f} s wall; img/s steady "
+            f"{fu['img_per_sec_steady']}, end-to-end "
+            f"{fu['img_per_sec_e2e']}; launches {fu_counts}")
+        say(f"fused tta8 path: --tta8 --device-metrics, mean RMSE "
+            f"{fut['mean_rmse']}, mean SSIM {fut['mean_ssim']}, "
+            f"{fut_wall:.1f} s wall; img/s steady "
+            f"{fut['img_per_sec_steady']}; launches {fut_counts}; card vs "
+            f"host RMSE {fu_gaps['rmse_host']:.3e}, SSIM "
+            f"{fu_gaps['ssim_host']:.3e}; card vs CPU RMSE "
+            f"{fu_gaps['rmse_cpu']:.3e}, SSIM {fu_gaps['ssim_cpu']:.3e}")
+        d_fu, d_fu_packed = compare_fused_paths(data)
+        say(f"fp32 fused forward b4 384x480: kernels vs plain stage max abs "
+            f"diff {d_fu:.3e} (<= {FWD_TOL}); fused vs packed max abs diff "
+            f"{d_fu_packed:.3e} (within atol {FUSED_TOL[0]}, rtol "
+            f"{FUSED_TOL[1]})")
+
+        # 19-20. the merged-tower forward in int8
+        d_fu8 = compare_fused_int8_paths(data)
+        say(f"fp32 fused int8 forward b4 384x480 (x4_ship4_qat_static): "
+            f"quant kernels vs plain max abs diff {d_fu8:.3e} (bitwise)")
+        fu8, fu8_wall, fu8_counts = run_fused_int8_path(kc, kq, data, tmp)
+        say(f"fused int8 path: cli eval --variant codon_fused --dtype int8 "
+            f"b4, mean RMSE {fu8['mean_rmse']}, mean SSIM "
+            f"{fu8['mean_ssim']}, {fu8_wall:.1f} s wall; img/s steady "
+            f"{fu8['img_per_sec_steady']}; launches {fu8_counts}")
+
+        # 21. the sequential-tower forward
+        seq = run_sequential_path(kc, kq, data, tmp)
+        for dt, (r, r_wall, r_counts) in seq.items():
+            say(f"sequential path: cli eval --variant rmcr_fuse_rmcr {dt} "
+                f"b4, mean RMSE {r['mean_rmse']}, mean SSIM "
+                f"{r['mean_ssim']}, {r_wall:.1f} s wall; img/s steady "
+                f"{r['img_per_sec_steady']}; launches {r_counts}")
+
+        # 22. the rest of the cli
+        t0 = time.time()
+        tools = run_cli_tools(data, tmp, os.path.join(tmp, "out"), summary)
+        say(f"cli resume: first run {tools['resume']['first_images']} "
+            f"images, second run's stub {json.dumps(tools['resume']['stub'])}")
+        say(f"cli profile: trace of {tools['profile_trace_bytes']} bytes "
+            f"with the CAC kernels in it")
+        say(f"cli check-nans: FloatingPointError as expected: "
+            f"{tools['check_nans']}")
+        say(f"cli golden on the main eval's PNGs: {tools['golden']} (the "
+            f"eval's own means)")
+        say(f"cli info: {' | '.join(tools['info'])}")
+        say(f"cli phases: {time.time() - t0:.1f} s")
+
+    # 23. results
     int8_paths = {"eval_int8": i8_counts,
                   "eval_int8_tta8_device_metrics": i8t_counts,
-                  "eval_int8_ensemble2_tta": i8e_counts}
+                  "eval_int8_ensemble2_tta": i8e_counts,
+                  "eval_codon_fused_int8": fu8_counts,
+                  "eval_rmcr_fuse_rmcr_int8": seq["int8"][2]}
+    cac_paths = {"eval_codon_fused": fu_counts,
+                 "eval_codon_fused_tta8_device_metrics": fut_counts,
+                 "eval_rmcr_fuse_rmcr": seq["bf16"][2],
+                 **{f"eval_pth_{k}": v[2] for k, v in pth_runs.items()}}
     kernels = []
     for name in ("cac_stats", "spatial_logits", "cac_apply"):
         t = timings[name]
@@ -1453,8 +2206,15 @@ def main() -> int:
                                  "eval_tta8_device_metrics": tta_counts[name],
                                  "eval_ensemble2_tta": ens_counts[name],
                                  **{p: c[name] for p, c in
-                                    int8_paths.items()}},
-            "max_abs_err": max(r["max_abs_err"] for r in checks[name]),
+                                    int8_paths.items()},
+                                 **{p: c[name] for p, c in
+                                    cac_paths.items()}},
+            **({"pitched": {"by_shape": ptimes[name],
+                            "max_abs_err": max(r["max_abs_err"]
+                                               for r in pchecks[name])}}
+               if name in ptimes else {}),
+            "max_abs_err": max(r["max_abs_err"] for r in
+                               checks[name] + pchecks.get(name, [])),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
@@ -1485,7 +2245,10 @@ def main() -> int:
             "source": "codon_tpu_torch/kernels/csrc/quant.cu",
             "replaces": REPLACES[name], "launches": i8_counts[name],
             "launches_by_path": {p: c[name] for p, c in int8_paths.items()},
-            "max_abs_err": max(r["max_abs_err"] for r in qchecks[name]),
+            "max_abs_err": max(r["max_abs_err"] for r in
+                               qchecks[name] + wchecks[name]),
+            "windowed": {"grouped_sites": wtimes, "max_abs_err": max(
+                r["max_abs_err"] for r in wchecks[name])},
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "device_ms": t["device_ms"],

@@ -3,11 +3,16 @@
   python -m codon_tpu_torch.cli eval --scale 4 --data-dir CODON_X4 \\
       --ckpt checkpoints/x4_ship4.npz --out results/ --json m.json
 
-eval  run a model over a scale directory, write PNGs, report RMSE / SSIM;
-      --tta / --tta8 average over geometric transforms, --ckpt a,b averages
-      a model ensemble, --device-metrics scores on the card, --dtype int8
-      runs the quantized convs (static per-channel scales where the
-      checkpoint carries act_scales/*, else dynamic per-sample ones)
+eval     run a model over a scale directory, write PNGs, report RMSE /
+         SSIM; --tta / --tta8 average over geometric transforms, --ckpt
+         a,b averages a model ensemble (.npz or the reference's .pth),
+         --device-metrics scores on the card, --dtype int8 runs the
+         quantized convs (static per-channel scales where the checkpoint
+         carries act_scales/*, else dynamic per-sample ones); --resume,
+         --profile DIR, --check-nans
+golden   score a scale dir's archived output/ PNGs against input_label/
+convert  the reference's torch .pth -> native .npz checkpoint
+info     the device, a variant's parameter count, the variant registry
 
 The model runs on the card (`--device cuda`, the default) unless the caller
 asks for the CPU with `--device cpu`; without CUDA the default raises.
@@ -37,9 +42,10 @@ def _build_argparser() -> argparse.ArgumentParser:
     e.add_argument("--data-dir", default=None,
                    help="explicit scale dir (overrides --data-root)")
     e.add_argument("--ckpt", default=None, metavar="CKPT[,CKPT...]",
-                   help=".npz checkpoint; random init (seed 0) if omitted. "
-                        "A comma list is a model ensemble: the members' "
-                        "outputs are averaged (composes with --tta)")
+                   help=".npz or .pth checkpoint; random init (seed 0) if "
+                        "omitted. A comma list is a model ensemble: the "
+                        "members' outputs are averaged (composes with "
+                        "--tta)")
     e.add_argument("--variant", default="codon",
                    help="model variant name (models.variants registry); "
                         "with a --ckpt ensemble, a comma list of one name "
@@ -71,8 +77,38 @@ def _build_argparser() -> argparse.ArgumentParser:
                         "the only copies back; RMSE exact, SSIM on padded "
                         "images by normalized convolution at the border, "
                         "see metrics/ondevice.py)")
+    e.add_argument("--resume", action="store_true",
+                   help="skip images whose output PNG already exists "
+                        "(not with --no-save)")
+    e.add_argument("--profile", default=None, metavar="DIR",
+                   help="trace the eval loop with torch.profiler (CPU, and "
+                        "CUDA on the card) and write a Chrome trace into "
+                        "DIR")
+    e.add_argument("--check-nans", action="store_true",
+                   help="fail fast on NaN: check every conv site's output "
+                        "and the forward's, raising FloatingPointError "
+                        "that names the site (syncs the card at every "
+                        "conv)")
     e.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
+
+    g = sub.add_parser("golden", help="score archived outputs")
+    g.add_argument("--scale", type=int, choices=(4, 8, 16), default=4)
+    g.add_argument("--data-root", default=".",
+                   help="directory containing CODON_X{scale}/")
+    g.add_argument("--data-dir", default=None,
+                   help="explicit scale dir (overrides --data-root)")
+
+    c = sub.add_parser("convert", help="torch .pth -> .npz")
+    c.add_argument("--pth", required=True)
+    c.add_argument("--npz", required=True)
+    c.add_argument("--no-dead-heads", action="store_true",
+                   help="X16-style checkpoints without attention_{c5,s5}")
+
+    i = sub.add_parser("info", help="model and device summary")
+    i.add_argument("--variant", default="codon")
+    i.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' for the CPU")
     return p
 
 
@@ -101,9 +137,14 @@ def _load_params(ckpt, variant, device):
               "(outputs will not match the reference).")
         return (variant.init(torch.Generator().manual_seed(0),
                              device=device), None)
+    if ckpt.endswith(".pth"):
+        from codon_tpu_torch.checkpoint.torch_convert import load_pth
+        tree, epoch = load_pth(ckpt, variant.cfg)
+        print(f"loaded torch checkpoint {ckpt} (epoch {epoch})")
+        return params_from_numpy(tree, device, dt), None
     if not ckpt.endswith(".npz"):
-        raise SystemExit(f"--ckpt {ckpt}: the port reads native .npz "
-                         f"checkpoints only")
+        raise SystemExit(f"--ckpt {ckpt}: expected a native .npz or a "
+                         f"torch .pth checkpoint")
     tree = load_npz(ckpt)
     scales = tree.pop("act_scales", None)
     params = params_from_numpy(tree, device, dt)
@@ -117,7 +158,7 @@ def _load_members(args, dtypes, device):
     """--ckpt and --variant -> ([(params, act_scales, variant)], ensemble?).
 
     A comma list of checkpoints is an ensemble, with one variant name for
-    all members or one a member. Each member is a native .npz carried
+    all members or one a member. Each member (.npz or .pth) is carried
     across to tensors by `checkpoint.native.params_from_numpy`, as a single
     checkpoint is: an ensemble needs no converter of its own.
     """
@@ -183,19 +224,27 @@ def make_eval_forward(args, device) -> EvalForward:
     plane innermost (a constant is flip- and transpose-invariant, so the
     geometric transforms act on the 1-channel depth), the ensemble mean over
     each member's own forward (with its own int8 backend) around it, then
-    TTA around it all.
+    TTA around it all. With --check-nans each member's backend checks every
+    conv site's output and each member's forward its output.
     """
+    from codon_tpu_torch.core.ops import NanCheckOps, TorchOps, check_nan
     from codon_tpu_torch.core.params import DTYPE_POLICIES
     from codon_tpu_torch.models.variants import with_scale_cond
 
     members, ensemble = _load_members(args, DTYPE_POLICIES[args.dtype],
                                       device)
     member_ops = _member_ops(args.dtype, members, ensemble)
+    if args.check_nans:
+        member_ops = [NanCheckOps(TorchOps() if ops is None else ops)
+                      for ops in member_ops]
     cond = args.scale / 16.0 if args.scale_cond else None
 
     def member_fwd(v, ops):
         def fwd(p, d, c, m):
-            return v.forward(p, d, c, mask=m, ops=ops)
+            out = v.forward(p, d, c, mask=m, ops=ops)
+            if args.check_nans:
+                check_nan(out, f"the {v.name} forward")
+            return out
         return with_scale_cond(fwd, cond) if cond is not None else fwd
 
     fwds = [member_fwd(v, ops) for (_, _, v), ops in zip(members, member_ops)]
@@ -227,6 +276,7 @@ def cmd_eval(args) -> int:
     log_ctx = Logger(args.log) if args.log else None
     if log_ctx:
         log_ctx.__enter__()
+    prof = None
     try:
         scale_dir = _scale_dir(args)
         ef = make_eval_forward(args, device)
@@ -238,6 +288,28 @@ def cmd_eval(args) -> int:
             print(f"scale conditioning: constant channel {args.scale / 16.0}")
         if ef.tta:
             print(f"tta: {ef.tta}-transform geometric self-ensemble")
+        if args.resume and not args.no_save:
+            done = {n for n in names
+                    if os.path.exists(os.path.join(args.out, n + ".png"))}
+            if done:
+                print(f"resume: skipping {len(done)} already-written images")
+            names = [n for n in names if n not in done]
+            if not names:
+                print("resume: nothing to do")
+                if args.json:
+                    # the normal summary's keys, metrics null, so that a
+                    # scripted pipeline reads no stale or key-less file
+                    with open(args.json, "w") as f:
+                        json.dump({"scale": args.scale, "images": 0,
+                                   "resumed_all": True,
+                                   "img_per_sec_steady": None,
+                                   "mean_rmse": None, "mean_ssim": None,
+                                   "img_per_sec_e2e": None,
+                                   "img_per_sec_compute": None,
+                                   "tta_transforms": 0,
+                                   "per_image": []}, f, indent=2)
+                    print(f"metrics written to {args.json}")
+                return 0
         evaluator = None
         if args.device_metrics:
             if ef.ensemble:
@@ -266,6 +338,13 @@ def cmd_eval(args) -> int:
             per_image.append({"name": name, "rmse": r, "ssim": s})
             print(f"{name}.png {r} {s}")
 
+        if args.profile:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            prof = profile(activities=acts)
+            prof.__enter__()
         t0_all = time.time()
         for batch in batched_loader(scale_dir, names, args.batch,
                                     args.pad_multiple, device=device):
@@ -298,6 +377,13 @@ def cmd_eval(args) -> int:
                     score(name, masked_rmse(label, img_u8),
                           ssim_exact(label / 255, img_u8 / 255))
         t_total = time.time() - t0_all
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            prof_done, prof = prof, None
+            os.makedirs(args.profile, exist_ok=True)
+            prof_done.export_chrome_trace(os.path.join(args.profile,
+                                                       "trace.json"))
+            print(f"profiler trace written to {args.profile}")
         # steady state leaves out the first batch: it pays cuDNN's and the
         # kernels' first-call set-up
         steady = None
@@ -330,13 +416,71 @@ def cmd_eval(args) -> int:
             print(f"metrics written to {args.json}")
         return 0
     finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
         if log_ctx:
             log_ctx.__exit__(None, None, None)
 
 
+def cmd_golden(args) -> int:
+    """Score `<scale dir>/output/*.png` against `input_label/` on the host,
+    as `codon_tpu.cli golden` does: a line an image, the count, the means."""
+    from codon_tpu_torch.data.io import imread_gray
+    from codon_tpu_torch.metrics.rmse import masked_rmse
+    from codon_tpu_torch.metrics.ssim import ssim_exact
+
+    scale_dir = _scale_dir(args)
+    out_dir = os.path.join(scale_dir, "output")
+    names = sorted(os.path.splitext(f)[0] for f in os.listdir(out_dir)
+                   if f.endswith(".png"))
+    if not names:
+        raise SystemExit(f"golden: no archived PNGs under {out_dir}")
+    rmse_sum = ssim_sum = 0.0
+    for name in names:
+        out = imread_gray(os.path.join(out_dir, name + ".png"))
+        label = imread_gray(os.path.join(scale_dir, "input_label",
+                                         name + ".png"))
+        r = masked_rmse(label, out)
+        s = ssim_exact(label / 255, out / 255)
+        rmse_sum += r
+        ssim_sum += s
+        print(f"{name}.png {r} {s}")
+    print(len(names))
+    print(rmse_sum / len(names), ssim_sum / len(names))
+    return 0
+
+
+def cmd_convert(args) -> int:
+    from codon_tpu_torch.checkpoint.native import save_npz
+    from codon_tpu_torch.checkpoint.torch_convert import load_pth
+    from codon_tpu_torch.models.codon_net import CodonConfig
+
+    cfg = CodonConfig(dead_heads=not args.no_dead_heads)
+    params, epoch = load_pth(args.pth, cfg)
+    save_npz(args.npz, params)
+    print(f"converted {args.pth} (epoch {epoch}) -> {args.npz}")
+    return 0
+
+
+def cmd_info(args) -> int:
+    from codon_tpu_torch.core.params import param_count
+    from codon_tpu_torch.models.variants import get_variant, list_variants
+
+    device = _device(args.device)
+    card = (f" ({torch.cuda.get_device_name(device)})"
+            if device.type == "cuda" else "")
+    print(f"torch {torch.__version__}, device: {device}{card}")
+    variant = get_variant(args.variant)
+    params = variant.init(torch.Generator().manual_seed(0), device=device)
+    print(f"variant '{args.variant}': {param_count(params):,} params")
+    print("available variants:", ", ".join(list_variants()))
+    return 0
+
+
 def main(argv=None) -> int:
     args = _build_argparser().parse_args(argv)
-    return {"eval": cmd_eval}[args.cmd](args)
+    return {"eval": cmd_eval, "golden": cmd_golden, "convert": cmd_convert,
+            "info": cmd_info}[args.cmd](args)
 
 
 if __name__ == "__main__":

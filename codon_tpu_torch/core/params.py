@@ -81,3 +81,10 @@ def linear_init(gen: torch.Generator, c_in: int, c_out: int,
 
     return uni((c_in, c_out)), uni((c_out,))
 
+
+
+def param_count(tree) -> int:
+    """Elements in a (nested dict) tree of tensors or arrays."""
+    if isinstance(tree, dict):
+        return sum(param_count(v) for v in tree.values())
+    return int(tree.numel() if isinstance(tree, torch.Tensor) else tree.size)

@@ -37,16 +37,18 @@ _L = ctypes.c_longlong
 # ctypes never cuts a 64-bit address to a 32-bit int
 _SIGNATURES = {
     "codon_cac_stats": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _P],
+                        _I, _I, _I, _I, _I, _I, _P],
     "codon_spatial_logits": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "codon_cac_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _P],
+                        _I, _I, _I, _I, _I, _I, _P],
     "codon_copy4d": [_P, _P, _L, _L, _L, _L, _P],
     "codon_copyflat": [_P, _P, _L, _L, _L, _L, _P],
     "codon_copy3d": [_P, _P, _L, _L, _L, _P],
     "codon_copy_ring_grid": [ctypes.POINTER(_I)],
-    "codon_quant_im2col": [_I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
-    "codon_dequant_epilogue": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "codon_quant_im2col": [_I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _P],
+    "codon_dequant_epilogue": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _P],
 }
 
 _lib = None

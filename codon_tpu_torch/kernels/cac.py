@@ -15,8 +15,12 @@ when its tensors lie on the CPU, and on a CUDA tensor launches the kernel or
 raises; it never falls back. Each wrapper counts its kernel launches in a
 plain integer attribute, `<wrapper>.launches`.
 
-Layout: contiguous NHWC, C innermost; activations float32, bfloat16 or
-float16; sums, maxes and the gate in float32.
+Layout: NHWC, C innermost; activations float32, bfloat16 or float16;
+sums, maxes and the gate in float32. A tower may be a channel window of a
+wider NHWC tensor (its "pitch", the elements from one pixel to the next,
+above C): the merged-tower forward hands the kernels the two halves of its
+(N, H, W, 2C) tensor as views, and `cac_apply(..., dst=...)` writes both
+halves of the next one. The plain versions take the same views.
 """
 from __future__ import annotations
 
@@ -72,13 +76,20 @@ def spatial_logits_plain(cmax, cmean, sp_w):
     return acc.to(cmax.dtype)
 
 
-def cac_apply_plain(out, out_c, inputs, inputs_c, gate, sp_logits):
+def cac_apply_plain(out, out_c, inputs, inputs_c, gate, sp_logits,
+                    dst=None):
     """gate (N,1,C) f32 post-sigmoid; sp_logits (N,H,W) pre-sigmoid.
     ad is built in float32 and rounded once to the activation dtype; the
-    gating and the long skip run in the activation dtype."""
+    gating and the long skip run in the activation dtype. dst: None, or a
+    pair of writable (N,H,W,C) views that receive (new_out, new_out_c)."""
     sp = torch.sigmoid(sp_logits.float())
     ad = (sp[..., None] * gate[:, None]).to(out.dtype)
-    return out * ad + inputs, out_c * ad + inputs_c
+    new = (out * ad + inputs, out_c * ad + inputs_c)
+    if dst is None:
+        return new
+    for d, v in zip(dst, new):
+        d.copy_(v)
+    return tuple(dst)
 
 
 # ---------------------------------------------------------------------------
@@ -101,16 +112,33 @@ def _need(cond: bool, what: str, *args) -> None:
         raise ValueError(what.format(*args))
 
 
+def tower_pitch(t: torch.Tensor):
+    """Elements from one pixel's first channel to the next's, if `t`
+    (N,H,W,C) is a tower the kernels read: its channels contiguous and its
+    pixels evenly spaced, as in a contiguous tensor (pitch C) or a channel
+    window of a wider contiguous NHWC tensor. None otherwise."""
+    n, h, w, c = t.shape
+    p = t.stride(2)
+    want = (h * w * p, w * p, p, 1)
+    if p < c or any(size > 1 and st != want[i]
+                    for i, (size, st) in enumerate(zip(t.shape, t.stride()))):
+        return None
+    return p
+
+
 def _check_towers(*ts):
+    """-> the towers' common pitch; raises unless the kernels take them."""
     ref = ts[0]
     _need(ref.dim() == 4, "expected NHWC activations, got {}",
           tuple(ref.shape))
     _need(ref.dtype in _DTYPE_CODES, "unsupported dtype {}", ref.dtype)
+    pitch = tower_pitch(ref)
     for t in ts:
         _need(t.shape == ref.shape and t.dtype == ref.dtype
               and t.device == ref.device,
               "towers differ in shape, dtype or device")
-        _need(t.is_contiguous(), "activations must be contiguous NHWC")
+        _need(pitch is not None and tower_pitch(t) == pitch,
+              "towers must be NHWC with contiguous channels and one pitch")
         _need(t.data_ptr() % 16 == 0,
               "activations must start on a 16-byte boundary")
     row = ref.shape[-1] * ref.element_size()
@@ -118,6 +146,9 @@ def _check_towers(*ts):
     _need(row % 16 == 0 and 1 <= vpp <= 32 and vpp & (vpp - 1) == 0,
           "C={} of {}: a pixel's channels must be a power-of-two count of "
           "16-byte vectors, at most 32", ref.shape[-1], ref.dtype)
+    _need(pitch * ref.element_size() % 16 == 0,
+          "pitch {}: not a whole number of 16-byte vectors", pitch)
+    return pitch
 
 
 def _check_plane(t, shape, dtype, device, what):
@@ -132,10 +163,11 @@ def _stream(t):
 
 
 def cac_stats(out, out_c, mask=None):
-    """Kernel-backed `cac_stats_plain`. mask: optional (N,H,W,1), same dtype."""
+    """Kernel-backed `cac_stats_plain`. mask: optional (N,H,W,1), same dtype.
+    The towers may be channel windows of one pitch (`tower_pitch`)."""
     if _on_cpu(out):
         return cac_stats_plain(out, out_c, mask)
-    _check_towers(out, out_c)
+    pitch = _check_towers(out, out_c)
     n, h, w, c = out.shape
     if mask is not None:
         _check_plane(mask, (n, h, w, 1), out.dtype, out.device, "mask")
@@ -153,7 +185,8 @@ def cac_stats(out, out_c, mask=None):
             _DTYPE_CODES[out.dtype], out.data_ptr(), out_c.data_ptr(),
             None if mask is None else mask.data_ptr(), part.data_ptr(),
             ch_sum.data_ptr(), ch_max.data_ptr(), cmax.data_ptr(),
-            cmean.data_ptr(), n, h, w, c, STATS_TILE_ROWS, _stream(out))
+            cmean.data_ptr(), n, h, w, c, pitch, STATS_TILE_ROWS,
+            _stream(out))
     _build.check(rc, "cac_stats")
     cac_stats.launches += 1
     return ch_sum, ch_max, cmax, cmean
@@ -186,24 +219,34 @@ def spatial_logits(cmax, cmean, sp_w):
     return logits
 
 
-def cac_apply(out, out_c, inputs, inputs_c, gate, sp_logits):
-    """Kernel-backed `cac_apply_plain` -> (new_out, new_out_c)."""
+def cac_apply(out, out_c, inputs, inputs_c, gate, sp_logits, dst=None):
+    """Kernel-backed `cac_apply_plain` -> (new_out, new_out_c). The four
+    inputs may be channel windows of one pitch, and dst a pair of windows
+    of another (both written in the one pass)."""
     if _on_cpu(out):
-        return cac_apply_plain(out, out_c, inputs, inputs_c, gate, sp_logits)
-    _check_towers(out, out_c, inputs, inputs_c)
+        return cac_apply_plain(out, out_c, inputs, inputs_c, gate, sp_logits,
+                               dst)
+    in_pitch = _check_towers(out, out_c, inputs, inputs_c)
     n, h, w, c = out.shape
     _check_plane(gate, (n, 1, c), torch.float32, out.device, "gate")
     _check_plane(sp_logits, out.shape[:3], out.dtype, out.device,
                  "sp_logits")
+    if dst is None:
+        new_out = torch.empty_like(out, memory_format=torch.contiguous_format)
+        new_out_c = torch.empty_like(new_out)
+    else:
+        new_out, new_out_c = dst
+    out_pitch = _check_towers(new_out, new_out_c)
+    _need(new_out.shape == out.shape and new_out.dtype == out.dtype
+          and new_out.device == out.device,
+          "dst: expected towers of the inputs' shape, dtype and device")
     lib = _build.load()
-    new_out = torch.empty_like(out)
-    new_out_c = torch.empty_like(out_c)
     with torch.cuda.device(out.device):
         rc = lib.codon_cac_apply(
             _DTYPE_CODES[out.dtype], out.data_ptr(), out_c.data_ptr(),
             inputs.data_ptr(), inputs_c.data_ptr(), gate.data_ptr(),
             sp_logits.data_ptr(), new_out.data_ptr(), new_out_c.data_ptr(),
-            n, h, w, c, _stream(out))
+            n, h, w, c, in_pitch, out_pitch, _stream(out))
     _build.check(rc, "cac_apply")
     cac_apply.launches += 1
     return new_out, new_out_c
@@ -227,8 +270,10 @@ def launches() -> dict:
 # the composed stage
 # ---------------------------------------------------------------------------
 
-def cac_stage(out, out_c, inputs, inputs_c, w1, b1, w2, b2, sp_w, mask=None):
-    """One CAC stage through the three kernels -> (new_out, new_out_c).
+def cac_stage(out, out_c, inputs, inputs_c, w1, b1, w2, b2, sp_w, mask=None,
+              dst=None):
+    """One CAC stage through the three kernels -> (new_out, new_out_c),
+    written into `dst` (a pair of tower views) when it is given.
 
     As `codon_tpu.kernels.cac.cac_stage_pallas`: stats; avg = sum / (valid
     pixel count, or H*W); the shared MLP 128 -> 8 -> 64 on avg and max,
@@ -250,4 +295,4 @@ def cac_stage(out, out_c, inputs, inputs_c, w1, b1, w2, b2, sp_w, mask=None):
 
     gate = torch.sigmoid(mlp(avg) + mlp(ch_max)).contiguous()   # (N,1,C)
     sp = spatial_logits(cmax, cmean, sp_w)
-    return cac_apply(out, out_c, inputs, inputs_c, gate, sp)
+    return cac_apply(out, out_c, inputs, inputs_c, gate, sp, dst)

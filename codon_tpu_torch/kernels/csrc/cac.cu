@@ -8,8 +8,15 @@
 // returns cudaGetLastError() after its launches; the wrapper raises on a
 // non-zero code.
 //
-// Tensors are contiguous NHWC with C innermost. The element type is float32,
-// bfloat16 or float16 (dtype code 0, 1, 2); all accumulation is in float32.
+// Tensors are NHWC with C innermost. The element type is float32, bfloat16
+// or float16 (dtype code 0, 1, 2); all accumulation is in float32. A tower
+// (cac_stats' two inputs, cac_apply's four inputs and two outputs) may be
+// a channel window of a wider tensor: its C channels are contiguous, and
+// `pitch` elements lie between one pixel's first channel and the next's
+// (C for a contiguous tower; 2C for a half of the merged-tower forward's
+// (N, H, W, 2C) tensor, read and written in place). The wrappers pass
+// each tower's own first element, 16-byte aligned, with the pitch a
+// whole number of 16-byte vectors.
 // A thread reads 16 bytes of channels at a time, so C * sizeof(T) is a
 // power-of-two multiple of 16 bytes of at most 512 (the wrapper checks):
 // one pixel's channels span VPP = C * sizeof(T) / 16 neighbouring threads of
@@ -95,7 +102,7 @@ __global__ void __launch_bounds__(kStatsThreads)
 stats_tiles_kernel(const T* __restrict__ x, const T* __restrict__ y,
                    const T* __restrict__ mask, float* __restrict__ part,
                    T* __restrict__ cmax, T* __restrict__ cmean,
-                   int H, int W, int C, int tile_h, int tiles) {
+                   int H, int W, int C, int pitch, int tile_h, int tiles) {
   constexpr int V = Pack<T>::N;
   __shared__ float red[kStatsWarps][4][kMaxC];
 
@@ -125,8 +132,8 @@ stats_tiles_kernel(const T* __restrict__ x, const T* __restrict__ y,
     float px = 0.f, py = 0.f, pm = kNeg;
     if (in) {
       const long long pix = base + p;
-      const Pack<T> a = load16(x + pix * C + (long long)s * V);
-      const Pack<T> b = load16(y + pix * C + (long long)s * V);
+      const Pack<T> a = load16(x + pix * pitch + (long long)s * V);
+      const Pack<T> b = load16(y + pix * pitch + (long long)s * V);
       const bool valid = mask == nullptr || Cvt<T>::to_f(mask[pix]) > 0.f;
 #pragma unroll
       for (int i = 0; i < V; ++i) {
@@ -211,13 +218,14 @@ __global__ void stats_finish_kernel(const float* __restrict__ part,
 template <typename T>
 cudaError_t launch_stats(const void* x, const void* y, const void* mask,
                          void* part, void* ch_sum, void* ch_max, void* cmax,
-                         void* cmean, int n, int h, int w, int c, int tile_h,
-                         cudaStream_t st) {
+                         void* cmean, int n, int h, int w, int c, int pitch,
+                         int tile_h, cudaStream_t st) {
   const int tiles = (h + tile_h - 1) / tile_h;
   stats_tiles_kernel<T><<<dim3(tiles, n), kStatsThreads, 0, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(y),
       static_cast<const T*>(mask), static_cast<float*>(part),
-      static_cast<T*>(cmax), static_cast<T*>(cmean), h, w, c, tile_h, tiles);
+      static_cast<T*>(cmax), static_cast<T*>(cmean), h, w, c, pitch, tile_h,
+      tiles);
   stats_finish_kernel<<<n, 128, 0, st>>>(
       static_cast<const float*>(part), static_cast<float*>(ch_sum),
       static_cast<float*>(ch_max), tiles, 2 * c);
@@ -451,7 +459,10 @@ cudaError_t launch_logits(const void* cmax, const void* cmean, const void* wgt,
 // 16-byte vector of all four inputs and both outputs, neighbouring threads on
 // neighbouring addresses; one block row of the grid per image so the image's
 // gate sits in shared memory; the logit is read once per pixel group
-// (cached) and its sigmoid recomputed per thread.
+// (cached) and its sigmoid recomputed per thread. The inputs share one
+// pitch and the outputs another, so the merged-tower forward reads the
+// halves of T and of its stem output in place and writes the next T, both
+// halves, in this one pass: no split before it and no concat after.
 // ---------------------------------------------------------------------------
 
 constexpr int kApplyThreads = 256;
@@ -462,7 +473,7 @@ cac_apply_kernel(const T* __restrict__ out, const T* __restrict__ outc,
                  const T* __restrict__ in, const T* __restrict__ inc,
                  const float* __restrict__ gate, const T* __restrict__ logits,
                  T* __restrict__ new_out, T* __restrict__ new_outc,
-                 long long hw, int C) {
+                 long long hw, int C, int in_pitch, int out_pitch) {
   constexpr int V = Pack<T>::N;
   __shared__ float sg[kMaxC];
   const int n = blockIdx.y;
@@ -476,7 +487,7 @@ cac_apply_kernel(const T* __restrict__ out, const T* __restrict__ outc,
   const int c0 = (int)(v % vpp) * V;
   const float z = Cvt<T>::to_f(logits[pix]);
   const float sp = 1.0f / (1.0f + expf(-z));
-  const long long off = pix * C + c0;
+  const long long off = pix * in_pitch + c0;
   const Pack<T> a = load16(out + off);
   const Pack<T> b = load16(outc + off);
   const Pack<T> p = load16(in + off);
@@ -490,15 +501,16 @@ cac_apply_kernel(const T* __restrict__ out, const T* __restrict__ outc,
     ra.set(i, Cvt<T>::from_f(__fadd_rn(ma, Cvt<T>::to_f(p.get(i)))));
     rb.set(i, Cvt<T>::from_f(__fadd_rn(mb, Cvt<T>::to_f(q.get(i)))));
   }
-  store16(new_out + off, ra);
-  store16(new_outc + off, rb);
+  const long long dst = pix * out_pitch + c0;
+  store16(new_out + dst, ra);
+  store16(new_outc + dst, rb);
 }
 
 template <typename T>
 cudaError_t launch_apply(const void* out, const void* outc, const void* in,
                          const void* inc, const void* gate, const void* logits,
                          void* new_out, void* new_outc, int n, int h, int w,
-                         int c, cudaStream_t st) {
+                         int c, int in_pitch, int out_pitch, cudaStream_t st) {
   const long long hw = (long long)h * w;
   const long long nvec = hw * (c / Pack<T>::N);
   const dim3 grid((unsigned)((nvec + kApplyThreads - 1) / kApplyThreads), n);
@@ -506,7 +518,8 @@ cudaError_t launch_apply(const void* out, const void* outc, const void* in,
       static_cast<const T*>(out), static_cast<const T*>(outc),
       static_cast<const T*>(in), static_cast<const T*>(inc),
       static_cast<const float*>(gate), static_cast<const T*>(logits),
-      static_cast<T*>(new_out), static_cast<T*>(new_outc), hw, c);
+      static_cast<T*>(new_out), static_cast<T*>(new_outc), hw, c, in_pitch,
+      out_pitch);
   return cudaGetLastError();
 }
 
@@ -525,12 +538,14 @@ cudaError_t launch_apply(const void* out, const void* outc, const void* in,
 
 extern "C" {
 
+// x, y: towers of pitch `pitch` (>= c), the others contiguous
 int codon_cac_stats(int dtype, const void* x, const void* y, const void* mask,
                     void* part, void* ch_sum, void* ch_max, void* cmax,
-                    void* cmean, int n, int h, int w, int c, int tile_h,
-                    void* stream) {
+                    void* cmean, int n, int h, int w, int c, int pitch,
+                    int tile_h, void* stream) {
   CODON_DISPATCH(dtype, launch_stats, x, y, mask, part, ch_sum, ch_max, cmax,
-                 cmean, n, h, w, c, tile_h, static_cast<cudaStream_t>(stream));
+                 cmean, n, h, w, c, pitch, tile_h,
+                 static_cast<cudaStream_t>(stream));
 }
 
 int codon_spatial_logits(int dtype, const void* cmax, const void* cmean,
@@ -540,12 +555,15 @@ int codon_spatial_logits(int dtype, const void* cmax, const void* cmean,
                  static_cast<cudaStream_t>(stream));
 }
 
+// out, outc, in, inc: towers of pitch in_pitch; new_out, new_outc of pitch
+// out_pitch (both >= c); gate and logits contiguous
 int codon_cac_apply(int dtype, const void* out, const void* outc,
                     const void* in, const void* inc, const void* gate,
                     const void* logits, void* new_out, void* new_outc, int n,
-                    int h, int w, int c, void* stream) {
+                    int h, int w, int c, int in_pitch, int out_pitch,
+                    void* stream) {
   CODON_DISPATCH(dtype, launch_apply, out, outc, in, inc, gate, logits,
-                 new_out, new_outc, n, h, w, c,
+                 new_out, new_outc, n, h, w, c, in_pitch, out_pitch,
                  static_cast<cudaStream_t>(stream));
 }
 

@@ -28,6 +28,13 @@
 //
 // Dtype codes: 0 float32, 1 bfloat16, 2 float16, 3 int8 (quant_im2col's
 // input only, already on the site's grid).
+//
+// Grouped convs (the merged-tower forward's two towers in one tensor, JAX's
+// feature_group_count=2) run group by group over one quantized input: the
+// gather reads a channel window [c0, c0 + cg) of the C-channel codes (row
+// pitch C), and the epilogue writes a column window [o0, o0 + cog) of the
+// C_out-channel output (row pitch C_out). The quantize pass runs once a
+// conv, over all C channels, not once a group.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -125,8 +132,9 @@ quantize_kernel(const T* __restrict__ x, const float* __restrict__ scale,
 
 __global__ void __launch_bounds__(kThreads)
 im2col_gather_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
-                     int H, int W, int C, int k, unsigned total) {
-  const unsigned cv = C / kVec;                // vectors of a pixel
+                     int H, int W, int C, int k, int c0, int cg,
+                     unsigned total) {
+  const unsigned cv = cg / kVec;               // vectors of a pixel's window
   const unsigned kv = (unsigned)(k * k) * cv;  // vectors of a patch row
   const int r = k / 2;
   for (unsigned v = blockIdx.x * blockDim.x + threadIdx.x; v < total;
@@ -146,7 +154,7 @@ im2col_gather_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
     uint4 codes = make_uint4(0u, 0u, 0u, 0u);
     if (sy >= 0 && sy < H && sx >= 0 && sx < W)
       codes = *reinterpret_cast<const uint4*>(
-          x + (((size_t)img * H + sy) * W + sx) * C + g * kVec);
+          x + (((size_t)img * H + sy) * W + sx) * C + c0 + g * kVec);
     reinterpret_cast<uint4*>(out)[v] = codes;
   }
 }
@@ -154,7 +162,9 @@ im2col_gather_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
 // ---------------------------------------------------------------------------
 // dequant_epilogue
 //
-// acc (N*H*W, C_out) int32 -> out (N, H, W, C_out) in T, each element
+// acc (N*H*W, C) int32 -> columns [o0, o0 + C) of out (N, H, W, pitch) in
+// T (pitch = C_out of the whole output; C and o0 = 0 but for a group of a
+// grouped conv), each element
 //   a = T(float(acc))                 (round_to(out_dt, acc))
 //   y = T(a * T(sw[c]))               static
 //   y = T(a * T(sx[n] * sw[c]))       dynamic (sx * sw in float32)
@@ -174,7 +184,8 @@ dequant_epilogue_kernel(const int32_t* __restrict__ acc,
                         const float* __restrict__ sw,
                         const float* __restrict__ sx,
                         const T* __restrict__ mask, T* __restrict__ out,
-                        int C, unsigned hw, unsigned total) {
+                        int C, int pitch, int o0, unsigned hw,
+                        unsigned total) {
   const unsigned per_row = C / 8;
   for (unsigned v = blockIdx.x * blockDim.x + threadIdx.x; v < total;
        v += gridDim.x * blockDim.x) {
@@ -200,7 +211,7 @@ dequant_epilogue_kernel(const int32_t* __restrict__ acc,
     }
 #pragma unroll
     for (int j = 0; j < (int)(sizeof(T) / 2); ++j)
-      reinterpret_cast<uint4*>(out + at)[j] = u[j];
+      reinterpret_cast<uint4*>(out + (size_t)row * pitch + o0 + c0)[j] = u[j];
   }
 }
 
@@ -229,19 +240,19 @@ void launch_quantize(const void* x, const float* scale, int mode, void* out,
 
 template <typename T>
 void launch_epilogue(const int32_t* acc, const float* sw, const float* sx,
-                     const void* mask, void* out, int C, unsigned hw,
-                     unsigned total, cudaStream_t st) {
+                     const void* mask, void* out, int C, int pitch, int o0,
+                     unsigned hw, unsigned total, cudaStream_t st) {
   const int grid = grid_for(total);
   const T* m = static_cast<const T*>(mask);
   T* o = static_cast<T*>(out);
   if (sx && m)
-    dequant_epilogue_kernel<T, true, true><<<grid, kThreads, 0, st>>>(acc, sw, sx, m, o, C, hw, total);
+    dequant_epilogue_kernel<T, true, true><<<grid, kThreads, 0, st>>>(acc, sw, sx, m, o, C, pitch, o0, hw, total);
   else if (sx)
-    dequant_epilogue_kernel<T, true, false><<<grid, kThreads, 0, st>>>(acc, sw, sx, m, o, C, hw, total);
+    dequant_epilogue_kernel<T, true, false><<<grid, kThreads, 0, st>>>(acc, sw, sx, m, o, C, pitch, o0, hw, total);
   else if (m)
-    dequant_epilogue_kernel<T, false, true><<<grid, kThreads, 0, st>>>(acc, sw, sx, m, o, C, hw, total);
+    dequant_epilogue_kernel<T, false, true><<<grid, kThreads, 0, st>>>(acc, sw, sx, m, o, C, pitch, o0, hw, total);
   else
-    dequant_epilogue_kernel<T, false, false><<<grid, kThreads, 0, st>>>(acc, sw, sx, m, o, C, hw, total);
+    dequant_epilogue_kernel<T, false, false><<<grid, kThreads, 0, st>>>(acc, sw, sx, m, o, C, pitch, o0, hw, total);
 }
 
 }  // namespace
@@ -249,20 +260,25 @@ void launch_epilogue(const int32_t* acc, const float* sw, const float* sx,
 extern "C" {
 
 // x (n, h, w, c) of dtype code `dtype` (0-2 float, 3 int8); mode 0 (int8
-// input, scale null), 1 (scale[c]) or 2 (scale[n]); scratch (n, h, w, c)
-// int8 for float input with k > 1, else unused; out (n*h*w, k*k*c) int8.
-// c is a multiple of 16, k odd; n*h*w*k*k*c/16 < 2^32.
+// input, scale null), 1 (scale[c]) or 2 (scale[n]); the channel window
+// [c0, c0 + cg) is gathered; scratch (n, h, w, c) int8 for float input
+// unless k = 1 and the window is all of c, else unused; out (n*h*w,
+// k*k*cg) int8. c, c0 and cg are multiples of 16, k odd; n*h*w*k*k*cg/16
+// and n*h*w*c/16 < 2^32.
 int codon_quant_im2col(int dtype, const void* x, const float* scale,
                        int mode, void* scratch, void* out, int n, int h,
-                       int w, int c, int k, void* stream) {
+                       int w, int c, int k, int c0, int cg, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned pix_vecs = (unsigned)((size_t)n * h * w * (c / kVec));
-  const unsigned total = pix_vecs * (unsigned)(k * k);
+  const unsigned total =
+      (unsigned)((size_t)n * h * w * (cg / kVec)) * (unsigned)(k * k);
   if (total == 0) return 0;
+  const bool whole = k == 1 && c0 == 0 && cg == c;
   const void* codes = x;
   if (dtype != 3) {
-    // the quantize pass: straight into the patches at a 1x1 site
-    void* dst = k == 1 ? out : scratch;
+    // the quantize pass: straight into the patches at a 1x1 site that
+    // takes every channel
+    void* dst = whole ? out : scratch;
     const unsigned image_vecs = (unsigned)((size_t)h * w * (c / kVec));
     if (dtype == 0)
       launch_quantize<float>(x, scale, mode, dst, c, image_vecs, pix_vecs, st);
@@ -270,31 +286,34 @@ int codon_quant_im2col(int dtype, const void* x, const float* scale,
       launch_quantize<__nv_bfloat16>(x, scale, mode, dst, c, image_vecs, pix_vecs, st);
     else
       launch_quantize<__half>(x, scale, mode, dst, c, image_vecs, pix_vecs, st);
-    if (k == 1) return (int)cudaGetLastError();
+    if (whole) return (int)cudaGetLastError();
     codes = scratch;
   }
   im2col_gather_kernel<<<grid_for(total), kThreads, 0, st>>>(
       static_cast<const int8_t*>(codes), static_cast<int8_t*>(out), h, w, c,
-      k, total);
+      k, c0, cg, total);
   return (int)cudaGetLastError();
 }
 
 // acc (n*h*w, c) int32; sw (c,) float32; sx (n,) float32 or null; mask
-// (n, h, w) of the output dtype or null; out (n, h, w, c). c is a
-// multiple of 8.
+// (n, h, w) of the output dtype or null; out (n, h, w, pitch), its columns
+// [o0, o0 + c) written. c, pitch and o0 are multiples of 8.
 int codon_dequant_epilogue(int dtype, const int32_t* acc, const float* sw,
                            const float* sx, const void* mask, void* out,
-                           int n, int h, int w, int c, void* stream) {
+                           int n, int h, int w, int c, int pitch, int o0,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned hw = (unsigned)h * (unsigned)w;
   const unsigned total = (unsigned)((size_t)n * hw * (c / 8));
   if (total == 0) return 0;
   if (dtype == 0)
-    launch_epilogue<float>(acc, sw, sx, mask, out, c, hw, total, st);
+    launch_epilogue<float>(acc, sw, sx, mask, out, c, pitch, o0, hw, total, st);
   else if (dtype == 1)
-    launch_epilogue<__nv_bfloat16>(acc, sw, sx, mask, out, c, hw, total, st);
+    launch_epilogue<__nv_bfloat16>(acc, sw, sx, mask, out, c, pitch, o0, hw,
+                                   total, st);
   else
-    launch_epilogue<__half>(acc, sw, sx, mask, out, c, hw, total, st);
+    launch_epilogue<__half>(acc, sw, sx, mask, out, c, pitch, o0, hw, total,
+                            st);
   return (int)cudaGetLastError();
 }
 

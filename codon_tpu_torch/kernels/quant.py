@@ -17,6 +17,11 @@ conv with an odd kernel as three steps over blocks of images:
   dequant_epilogue  int32 -> the activation dtype, round_to(dt, acc) * s_w
                     (static) or * (s_x * s_w) (dynamic), times the mask
 
+A grouped conv (`groups` G, the merged-tower forward's) quantizes its input
+once over all channels, then runs each group as a gather of that group's
+channel window, a GEMM against the group's weights, and an epilogue that
+writes the group's output-channel window of the one output tensor.
+
 The CUDA sources are in `csrc/quant.cu`. Each wrapper takes the plain
 version when its tensors lie on the CPU, and on a CUDA tensor launches the
 kernel or raises; it never falls back. Each counts its launches in a plain
@@ -48,18 +53,21 @@ def quantize_plain(x, s):
     return torch.clamp(torch.round(x.float() / s), -127, 127).to(torch.int8)
 
 
-def quant_im2col_plain(x, k, sc=None, sx=None):
-    """x (N,H,W,C) -> (N*H*W, k*k*C) int8 patches, K ordered (dy, dx, c).
+def quant_im2col_plain(x, k, sc=None, sx=None, c0=0, cg=None):
+    """x (N,H,W,C) -> (N*H*W, k*k*cg) int8 patches of the channel window
+    [c0, c0 + cg) (all of C by default), K ordered (dy, dx, c).
 
     x int8: taken as codes (sc and sx None). Else exactly one of sc (C,)
     float32, a static per-channel scale, or sx (N,) float32, a dynamic
-    per-image one.
+    per-image one; all C channels are quantized.
     """
-    n, h, w, c = x.shape
+    n, h, w, _ = x.shape
     if x.dtype == torch.int8:
         q = x
     else:
         q = quantize_plain(x, sc if sc is not None else sx.reshape(n, 1, 1, 1))
+    c = q.shape[3] if cg is None else cg
+    q = q[..., c0:c0 + c]
     r = k // 2
     qp = F.pad(q, (0, 0, r, r, r, r))
     taps = [qp[:, dy:dy + h, dx:dx + w] for dy in range(k) for dx in range(k)]
@@ -67,12 +75,13 @@ def quant_im2col_plain(x, k, sc=None, sx=None):
 
 
 def dequant_epilogue_plain(acc, sw, dtype, shape, sx=None, mask=None,
-                           out=None):
+                           out=None, o0=0):
     """acc (N*H*W, C_out) int32 -> (N,H,W,C_out) in `dtype`.
 
     round_to(dtype, acc) * sw.to(dtype) (static), or * (sx * sw).to(dtype)
     with sx (N,) float32 (dynamic); then * mask.to(dtype), mask (N,H,W,1).
-    `out`, when given, receives the result.
+    `out`, when given, receives the result in its channels [o0, o0 +
+    C_out) (a group's window of a grouped conv's output).
     """
     n, h, w = shape
     a = acc.reshape(n, h, w, acc.shape[1]).float().to(dtype)
@@ -82,7 +91,8 @@ def dequant_epilogue_plain(acc, sw, dtype, shape, sx=None, mask=None,
         y = y * mask.to(dtype)
     if out is None:
         return y
-    return out.copy_(y)
+    out[..., o0:o0 + y.shape[3]] = y
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -113,19 +123,25 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def quant_im2col(x, k, sc=None, sx=None):
-    """Kernel-backed `quant_im2col_plain`. On the card C is a multiple of
-    16 and x starts on a 16-byte boundary. Float input at k > 1 takes two
-    kernels (quantize, then gather), counted as one launch of the wrapper;
-    at k = 1 the patches are the quantized x itself."""
+def quant_im2col(x, k, sc=None, sx=None, c0=0, cg=None):
+    """Kernel-backed `quant_im2col_plain`. On the card C, c0 and cg are
+    multiples of 16 and x starts on a 16-byte boundary. Float input takes
+    two kernels (quantize, then gather), counted as one launch of the
+    wrapper; at k = 1 over all of C the patches are the quantized x
+    itself."""
     if _on_cpu(x):
-        return quant_im2col_plain(x, k, sc, sx)
+        return quant_im2col_plain(x, k, sc, sx, c0, cg)
     _need(x.dim() == 4 and x.dtype in _DTYPE_CODES and x.is_contiguous(),
           "x: expected contiguous NHWC float32, bfloat16, float16 or int8, "
           "got {} {}", x.dtype, tuple(x.shape))
     n, h, w, c = x.shape
     _need(c % _VEC == 0 and x.data_ptr() % 16 == 0,
           "x: C={} must be a multiple of 16 and x 16-byte aligned", c)
+    cg = c if cg is None else cg
+    _need(c0 % _VEC == 0 and cg % _VEC == 0 and 0 <= c0 and cg > 0
+          and c0 + cg <= c,
+          "channel window [{}, {}) of C={}: the gather reads whole 16-byte "
+          "vectors inside C", c0, c0 + cg, c)
     _need(k % 2 == 1, "k={}: the kernel takes odd kernels", k)
     if x.dtype == torch.int8:
         _need(sc is None and sx is None, "int8 input takes no scale")
@@ -141,31 +157,36 @@ def quant_im2col(x, k, sc=None, sx=None):
             _check_vector(scale, (n,), "sx")
         _need(scale.device == x.device, "scale on {}, x on {}",
               scale.device, x.device)
-    rows, kk = n * h * w, k * k * c
-    _need(rows * kk // _VEC < 2 ** 32, "{} patch bytes: more than the "
-          "kernel's 32-bit vector index", rows * kk)
+    rows, kk = n * h * w, k * k * cg
+    _need(max(rows * kk, rows * c) // _VEC < 2 ** 32, "{} patch bytes: "
+          "more than the kernel's 32-bit vector index", rows * kk)
     out = torch.empty((rows, kk), dtype=torch.int8, device=x.device)
-    # float input at k > 1: the codes of x, quantized once, then gathered
+    # float input, unless at k = 1 over all of C: the codes of x, quantized
+    # once, then gathered
+    whole = k == 1 and cg == c
     scratch = (torch.empty(x.shape, dtype=torch.int8, device=x.device)
-               if scale is not None and k > 1 else None)
+               if scale is not None and not whole else None)
     lib = _build.load()
     with torch.cuda.device(x.device):
         rc = lib.codon_quant_im2col(
             _DTYPE_CODES[x.dtype], x.data_ptr(),
             None if scale is None else scale.data_ptr(), mode,
             None if scratch is None else scratch.data_ptr(),
-            out.data_ptr(), n, h, w, c, k, _stream(x))
+            out.data_ptr(), n, h, w, c, k, c0, cg, _stream(x))
     _build.check(rc, "quant_im2col")
     quant_im2col.launches += 1
     return out
 
 
-def dequant_epilogue(acc, sw, dtype, shape, sx=None, mask=None, out=None):
-    """Kernel-backed `dequant_epilogue_plain`. On the card C_out is a
-    multiple of 8; mask, when given, is (N,H,W,1) in `dtype`; `out`, when
-    given, a contiguous (N,H,W,C_out) tensor of `dtype`."""
+def dequant_epilogue(acc, sw, dtype, shape, sx=None, mask=None, out=None,
+                     o0=0):
+    """Kernel-backed `dequant_epilogue_plain`. On the card C_out and o0 are
+    multiples of 8; mask, when given, is (N,H,W,1) in `dtype`; `out`, when
+    given, a contiguous (N,H,W,P) tensor of `dtype` whose channels [o0, o0
+    + C_out) lie inside P."""
     if _on_cpu(acc):
-        return dequant_epilogue_plain(acc, sw, dtype, shape, sx, mask, out)
+        return dequant_epilogue_plain(acc, sw, dtype, shape, sx, mask, out,
+                                      o0)
     n, h, w = shape
     _need(acc.dim() == 2 and acc.dtype == torch.int32 and acc.is_contiguous()
           and acc.shape[0] == n * h * w,
@@ -185,10 +206,14 @@ def dequant_epilogue(acc, sw, dtype, shape, sx=None, mask=None, out=None):
               "mask: expected contiguous ({}, {}, {}, 1) {}", n, h, w, dtype)
     if out is None:
         out = torch.empty((n, h, w, co), dtype=dtype, device=acc.device)
-    _need(out.shape == (n, h, w, co) and out.dtype == dtype
+    pitch = out.shape[-1]
+    _need(out.shape[:3] == (n, h, w) and out.dtype == dtype
           and out.is_contiguous() and out.data_ptr() % 16 == 0,
-          "out: expected contiguous 16-byte aligned ({}, {}, {}, {}) {}",
-          n, h, w, co, dtype)
+          "out: expected contiguous 16-byte aligned ({}, {}, {}, P) {}",
+          n, h, w, dtype)
+    _need(o0 % 8 == 0 and 0 <= o0 and o0 + co <= pitch,
+          "output window [{}, {}) of P={}: 8-channel aligned, inside P",
+          o0, o0 + co, pitch)
     for t in (sw, sx, mask, out):
         _need(t is None or t.device == acc.device,
               "every tensor must be on {}", acc.device)
@@ -200,7 +225,7 @@ def dequant_epilogue(acc, sw, dtype, shape, sx=None, mask=None, out=None):
             _DTYPE_CODES[dtype], acc.data_ptr(), sw.data_ptr(),
             None if sx is None else sx.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
-            n, h, w, co, _stream(acc))
+            n, h, w, co, pitch, o0, _stream(acc))
     _build.check(rc, "dequant_epilogue")
     dequant_epilogue.launches += 1
     return out
@@ -256,27 +281,38 @@ def image_blocks(n, h, w, kk):
     return [(i, min(n, i + per)) for i in range(0, n, per)]
 
 
-def int8_conv(x, w8, sw, dtype, *, sc=None, sx=None, mask=None, impl=None):
+def int8_conv(x, w8, sw, dtype, *, sc=None, sx=None, mask=None, impl=None,
+              groups=1):
     """Stride-1 SAME int8 conv, dequantized and masked -> (N,H,W,C_out).
 
     x (N,H,W,C): int8 codes, or float with sc (C,) or sx (N,) float32 as in
-    `quant_im2col_plain`. w8 (k,k,C,C_out) int8 HWIO, k odd; sw (C_out,)
-    float32 its dequant scale; dtype the output's. mask (N,H,W,1) or None.
-    impl: None takes the kernels (their plain versions on CPU tensors);
-    "plain" takes the plain versions on any device, the card's reference.
+    `quant_im2col_plain`. w8 (k,k,C/groups,C_out) int8 HWIO, k odd, the
+    output channels blocked by group; sw (C_out,) float32 its dequant
+    scale; dtype the output's. mask (N,H,W,1) or None. impl: None takes
+    the kernels (their plain versions on CPU tensors); "plain" takes the
+    plain versions on any device, the card's reference. With groups > 1
+    the input is quantized once (at k = 1, over all C), then each group is
+    gathered, multiplied and dequantized into its output window; on the
+    card every group's widths must meet the kernels' alignment (C/groups a
+    multiple of 16, C_out/groups of 8).
     """
     if impl not in (None, "plain"):
         raise ValueError(f"impl must be None or 'plain', got {impl!r}")
     n, h, w, c = x.shape
     k = w8.shape[0]
+    cg = c // groups
     _need(w8.dim() == 4 and w8.shape[1] == k and k % 2 == 1
-          and w8.shape[2] == c and w8.dtype == torch.int8,
-          "w8: expected int8 (k, k, {}, C_out) with k odd, got {} {}", c,
-          w8.dtype, tuple(w8.shape))
+          and c % groups == 0 and w8.shape[2] == cg
+          and w8.shape[3] % groups == 0 and w8.dtype == torch.int8,
+          "w8: expected int8 (k, k, {}, C_out) with k odd and C_out a "
+          "multiple of {}, got {} {}", cg, groups, w8.dtype, tuple(w8.shape))
     co = w8.shape[3]
-    kk = k * k * c
-    # column-major, as int8_gemm hands it to cuBLASLt
-    wmat = w8.reshape(kk, co).t().contiguous().t()
+    cog = co // groups
+    kk = k * k * cg
+    # column-major, as int8_gemm hands it to cuBLASLt; one (K, C_out/G)
+    # matrix a group
+    wmats = [w8[..., g * cog:(g + 1) * cog].reshape(kk, cog).t()
+             .contiguous().t() for g in range(groups)]
     plain = impl == "plain"
     im2col = quant_im2col_plain if plain else quant_im2col
     epilogue = dequant_epilogue_plain if plain else dequant_epilogue
@@ -286,10 +322,20 @@ def int8_conv(x, w8, sw, dtype, *, sc=None, sx=None, mask=None, impl=None):
         sx = sx.reshape(n).contiguous()
     out = torch.empty((n, h, w, co), dtype=dtype, device=x.device)
     for i, j in image_blocks(n, h, w, kk):
-        patches = im2col(x[i:j], k, sc, None if sx is None else sx[i:j])
-        acc = int8_gemm(patches, wmat)
-        del patches
-        epilogue(acc, sw, dtype, (j - i, h, w),
-                 None if sx is None else sx[i:j],
-                 None if mask is None else mask[i:j], out=out[i:j])
+        sxb = None if sx is None else sx[i:j]
+        xb = x[i:j]
+        if groups > 1 and xb.dtype != torch.int8:
+            # quantize once over all C: the codes of x, pixel by pixel
+            xb = im2col(xb, 1, sc, sxb).view(xb.shape)
+        for g, wmat in enumerate(wmats):
+            if groups > 1:
+                patches = im2col(xb, k, c0=g * cg, cg=cg)
+            else:
+                patches = im2col(xb, k, sc, sxb)
+            acc = int8_gemm(patches, wmat)
+            del patches
+            epilogue(acc, sw[g * cog:(g + 1) * cog].contiguous(), dtype,
+                     (j - i, h, w), sxb,
+                     None if mask is None else mask[i:j], out=out[i:j],
+                     o0=g * cog)
     return out

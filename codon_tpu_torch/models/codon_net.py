@@ -23,6 +23,11 @@ The CAC stage runs either through the three CUDA kernels
 (`cac_impl="kernel"`, `kernels/cac.py`) or as plain PyTorch ops mirroring
 the JAX package's XLA stage (`cac_impl="torch"`). The default takes the
 kernels for CUDA tensors and the plain ops for CPU tensors.
+
+Two more forwards take the same parameter tree: `codon_forward_fused`
+runs both towers in one 2W-channel tensor with grouped convs (variant
+`codon_fused`), and `sequential_tower_forward` runs the towers one after
+the other with no CAC (variant `rmcr_fuse_rmcr`).
 """
 from __future__ import annotations
 
@@ -320,6 +325,176 @@ def _forward(params, depth, color, cfg, ops, mask):
         out_f = fuse_stage(out_f, fuse)
         if j < cfg.num_fuse - 1:
             out_f = pc(out_f, name="packed_f")
+
+    out = relu(conv("conv11", out_f))
+    return (conv("output", out) + residual).float()
+
+
+@torch.no_grad()
+def codon_forward_fused(params, depth, color, *,
+                        cfg: CodonConfig = CodonConfig(),
+                        ops: Optional[TorchOps] = None, mask=None):
+    """Merged-tower CODONNet: `codon_forward`'s function, op for op the JAX
+    package's `codon_forward_fused`.
+
+    The towers run in ONE 2W-channel tensor T = [out | out_c] with grouped
+    convs (groups=2): [input | input_c] over the stacked (depth, color)
+    planes, [conv1 | conv5] as one 3x3, [conv2 | conv4] as one 5x5,
+    [conv3 | conv6] as one 5x5 over the 4W `mixed` concat, [confuse |
+    confuse_c] as one 1x1. The grouped convs carry compound site names
+    ("conv3+conv6"), which the int8 backends resolve through the packed
+    sites' scales. There are no handoffs (roundtrip, precommit), as in JAX.
+    On the card the CAC stage runs the three kernels on the halves of T and
+    of the stem output in place, writing the next T in one pass; on the CPU
+    and under cac_impl="torch", the plain stage of the JAX form.
+    `color_cat_swapped` is not lowered here and raises.
+    """
+    if cfg.color_cat_swapped:
+        raise NotImplementedError(
+            "codon_forward_fused hardcodes the cell concat order; use "
+            "codon_forward for color_cat_swapped configs")
+    with full_fp32():
+        return _forward_fused(params, depth, color, cfg,
+                              TorchOps() if ops is None else ops, mask)
+
+
+def _forward_fused(params, depth, color, cfg, ops, mask):
+    cdt = cfg.dtypes.compute_dtype
+    relu = torch.relu
+    w = cfg.width
+    p = params
+
+    x = depth.to(cdt)
+    y = color.to(cdt)
+    if mask is not None:
+        mask = mask.to(cdt).contiguous()
+        x = x * mask
+        y = y * mask
+
+    def conv(wk, t, site, groups=1):
+        return ops.conv2d(t, wk, mask=mask, groups=groups, name=site)
+
+    def cat(*ts):
+        return torch.cat(ts, -1)
+
+    # grouped kernels (k, k, C_in/2, C_out), the output channels blocked
+    # by group; the stems run grouped over the 2-channel [depth | color]
+    k_in = cat(p["input"], p["input_c"])                     # (3,3,1,128)
+    T = relu(conv(k_in, cat(x, y), "input+input_c", 2))
+    k_ci = cat(p["conv_input"], p["conv_input_c"])
+    inputs2 = relu(conv(k_ci, T, "conv_input+conv_input_c", 2))
+    T = inputs2
+
+    k_3x3 = cat(p["conv1"], p["conv5"])                      # (3,3,64,128)
+    k_5x5 = cat(p["conv2"], p["conv4"])                      # (5,5,64,128)
+    k_big = cat(p["conv3"], p["conv6"])                      # (5,5,128,256)
+    k_fuse1 = cat(p["confuse"], p["confuse_c"])
+
+    cac = p.get("cac") if cfg.use_cac else None
+    use_kernels = cac is not None and _use_kernels(cfg, x)
+    for i in range(cfg.num_mc):
+        A = relu(conv(k_3x3, T, "conv1+conv5", 2))           # [d3 | c3]
+        B = relu(conv(k_5x5, T, "conv2+conv4", 2))           # [d5 | c5]
+        # depth cell input cat(d3, d5); color cell input cat(c5, c3)
+        mixed = cat(A[..., :w], B[..., :w], B[..., w:], A[..., w:])
+        R2 = relu(conv(k_big, mixed, "conv3+conv6", 2))
+        T = conv(k_fuse1, R2, "confuse+confuse_c", 2)       # [out | out_c]
+        if cac is None:
+            T = T + inputs2
+            continue
+        cac_i = {k: v[i] for k, v in cac.items()}
+        out, out_c = T[..., :w], T[..., w:]
+        if use_kernels:
+            nxt = torch.empty_like(T)
+            cac_stage(out, out_c, inputs2[..., :w], inputs2[..., w:],
+                      cac_i["ch_w1"], cac_i["ch_b1"], cac_i["ch_w2"],
+                      cac_i["ch_b2"], cac_i["sp_w"], mask,
+                      dst=(nxt[..., :w], nxt[..., w:]))
+            T = nxt
+            continue
+        ch = cac_channel_gate((out_c, out), cac_i["ch_w1"], cac_i["ch_b1"],
+                              cac_i["ch_w2"], cac_i["ch_b2"], ops, mask)
+        sp = cac_spatial_gate((out_c, out), cac_i["sp_w"], ops, mask)
+        T = T * (cat(ch, ch) * sp) + inputs2
+
+    # the fusion trunk consumes cat(out, out_c) == T directly
+    fuse = relu(conv(p["conv7"], T, "conv7"))
+    out_f = fuse
+    for _ in range(cfg.num_fuse):
+        f_cat = cat(relu(conv(p["conv8"], out_f, "conv8")),
+                    relu(conv(p["conv9"], out_f, "conv9")))
+        out_f = conv(p["confuse_fuse"], relu(conv(p["conv10"], f_cat,
+                                                  "conv10")),
+                     "confuse_fuse") + fuse
+
+    out = relu(conv(p["conv11"], out_f, "conv11"))
+    return (conv(p["output"], out, "output") + x).float()
+
+
+@torch.no_grad()
+def sequential_tower_forward(params, depth, color, *,
+                             cfg: CodonConfig = CodonConfig(),
+                             ops: Optional[TorchOps] = None, mask=None):
+    """The attention-free skeleton (the reference's BaseNet_RMCR_fuseRMCR):
+    the depth tower's five MC stages, then the color tower's, then the
+    fusion trunk; no CAC (use_cac is forced off). The residual is the whole
+    depth input, as in the JAX package's `sequential_tower_forward`.
+    """
+    cfg = dataclasses.replace(cfg, use_cac=False)
+    with full_fp32():
+        return _forward_sequential(params, depth, color, cfg,
+                                   TorchOps() if ops is None else ops, mask)
+
+
+def _forward_sequential(params, depth, color, cfg, ops, mask):
+    relu = torch.relu
+    cdt = cfg.dtypes.compute_dtype
+    x, y = depth.to(cdt), color.to(cdt)
+    if mask is not None:
+        mask = mask.to(cdt).contiguous()
+        x = x * mask
+        y = y * mask
+
+    def conv(n, t, site=None):
+        if isinstance(n, str):
+            wk, site = params[n], n
+        else:
+            wk = n
+        return ops.conv2d(t, wk, mask=mask, name=site)
+
+    # each cell's pair of convs, and its packed site
+    pairs = {"packed_d": ("conv1", "conv2"), "packed_c": ("conv4", "conv5"),
+             "packed_f": ("conv8", "conv9")}
+    if cfg.cell_impl not in ("packed", "split"):
+        raise ValueError(f"cell_impl must be 'packed' or 'split', got "
+                         f"{cfg.cell_impl!r}")
+    packed = {site: pack_kernel_pair(params[a], params[b])
+              for site, (a, b) in pairs.items()
+              } if cfg.cell_impl == "packed" else None
+
+    def cell(t, site):
+        if packed is not None:
+            return relu(conv(packed[site], t, site=site))
+        return torch.cat([relu(conv(n, t)) for n in pairs[site]], -1)
+
+    residual = x
+    inputs = relu(conv("conv_input", relu(conv("input", x))))
+    out = inputs
+    for _ in range(cfg.num_mc):
+        out = conv("confuse", relu(conv("conv3", cell(out, "packed_d")))) \
+            + inputs
+
+    inputs_c = relu(conv("conv_input_c", relu(conv("input_c", y))))
+    out_c = inputs_c
+    for _ in range(cfg.num_mc):
+        out_c = conv("confuse_c", relu(conv("conv6", cell(
+            out_c, "packed_c")))) + inputs_c
+
+    fuse = relu(conv("conv7", torch.cat([out, out_c], -1)))
+    out_f = fuse
+    for _ in range(cfg.num_fuse):
+        out_f = conv("confuse_fuse", relu(conv("conv10", cell(
+            out_f, "packed_f")))) + fuse
 
     out = relu(conv("conv11", out_f))
     return (conv("output", out) + residual).float()

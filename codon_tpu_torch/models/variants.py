@@ -1,19 +1,22 @@
 """Model-variant registry: each name pairs a CodonConfig with its forward.
 
-The variants of `codon_tpu.models.variants` that run `codon_forward`; the
-merged-tower (`codon_fused`), attention-free (`rmcr_fuse_rmcr`) and `zoo:*`
-variants are not ported yet.
+The variants of `codon_tpu.models.variants` but its `zoo:*` names (the
+ablation zoo is not ported yet): those that run `codon_forward`, the
+merged-tower `codon_fused` (`codon_forward_fused`) and the attention-free
+`rmcr_fuse_rmcr` (`sequential_tower_forward`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
 
 from codon_tpu_torch.core.params import DTypePolicy, FP32
 from codon_tpu_torch.models.codon_net import (CodonConfig, codon_forward,
-                                              init_codon_params)
+                                              codon_forward_fused,
+                                              init_codon_params,
+                                              sequential_tower_forward)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,28 +24,31 @@ class Variant:
     name: str
     cfg: CodonConfig
     doc: str = ""
+    forward_fn: Callable = codon_forward
 
     def init(self, gen, device="cuda"):
         return init_codon_params(gen, self.cfg, device=device)
 
     def forward(self, params, depth, color, mask=None, ops=None):
-        return codon_forward(params, depth, color, cfg=self.cfg, mask=mask,
-                             ops=ops)
+        return self.forward_fn(params, depth, color, cfg=self.cfg, mask=mask,
+                               ops=ops)
 
 
 _REGISTRY: Dict[str, tuple] = {}
 
 
-def _register(name: str, doc: str, **cfg_fields) -> None:
-    _REGISTRY[name] = (cfg_fields, doc)
+def _register(name: str, doc: str, forward_fn=codon_forward,
+              **cfg_fields) -> None:
+    _REGISTRY[name] = (cfg_fields, doc, forward_fn)
 
 
 def get_variant(name: str, dtypes: DTypePolicy = FP32) -> Variant:
     if name not in _REGISTRY:
         raise KeyError(f"unknown variant '{name}'; available: "
                        f"{sorted(_REGISTRY)}")
-    fields, doc = _REGISTRY[name]
-    return Variant(name, CodonConfig(dtypes=dtypes, **fields), doc)
+    fields, doc, forward_fn = _REGISTRY[name]
+    return Variant(name, CodonConfig(dtypes=dtypes, **fields), doc,
+                   forward_fn)
 
 
 def list_variants():
@@ -61,6 +67,12 @@ def with_scale_cond(fwd, value: float):
 
 _register("codon", "published CODONNet, X4/X8 flavor (incl. dead heads)",
           dead_heads=True)
+_register("codon_fused", "CODONNet with merged-tower grouped convs: the same "
+          "function and checkpoints as 'codon'; the int8 backends resolve "
+          "its compound grouped site names to the packed sites' scales",
+          codon_forward_fused, dead_heads=True)
+_register("rmcr_fuse_rmcr", "attention-free CODON skeleton, sequential "
+          "towers, no CAC", sequential_tower_forward, use_cac=False)
 _register("codon_sc", "scale-conditioned CODONNet: the depth stem takes "
           "(depth, constant scale/16 plane); residual and head read "
           "channel 0; no dead heads", in_channels=2)

@@ -4,6 +4,8 @@
         [--ckpt checkpoints/x4_ship4.npz] [--trace out/trace.json]
     python -m codon_tpu_torch.profile_forward --dtype int8
         [--ckpt checkpoints/x4_ship4_qat_static.npz]
+    python -m codon_tpu_torch.profile_forward --variant codon_fused
+        [--dtype int8]
 
 Runs the forward that `cli eval` runs (padded batch, validity mask) on
 random Middlebury-shaped inputs (463 x 370 valid, padded to 480 x 384),
@@ -18,7 +20,11 @@ With --dtype int8 the quantized convs run in `quant_ops.Int8StaticOps` (or
 include quant_im2col's quantize and gather passes, the int8 GEMM and the
 dequant epilogue, and the JSON also gives the device time of a
 `record_function` range around each Ops call (`device_ms_by_range`: the
-int8 convs, the float convs, and the handoffs roundtrip and precommit).
+int8 convs, the float convs, and the handoffs roundtrip and precommit; a
+grouped conv of `codon_fused` has a range of its own, named by its site,
+e.g. `int8_conv:conv3+conv6`). --variant takes any name of the registry:
+`codon_fused` (merged towers, grouped convs) and `rmcr_fuse_rmcr`
+(sequential towers, no CAC) too.
 """
 from __future__ import annotations
 
@@ -108,6 +114,8 @@ def _labelled(cls):
     class Labelled(cls):
         def conv2d(self, x, w, **kw):
             what = "float_conv" if _skip_quant(w) else "int8_conv"
+            if kw.get("groups", 1) > 1:
+                what += ":" + str(kw.get("name"))
             with record_function(RANGE + what):
                 return super().conv2d(x, w, **kw)
 

@@ -26,7 +26,9 @@ the head, the CAC spatial gate) stay float in every backend. Every
 quantized conv runs `kernels.quant.int8_conv`: the quantize-gather and the
 dequant epilogue as CUDA kernels on the card, the int8 GEMM in cuBLASLt;
 the handoffs quantize with the same quantize kernel. The folded int8
-weights are made anew at every call, as in JAX.
+weights are made anew at every call, as in JAX. Grouped convs (`groups`,
+the merged-tower forward's) quantize their whole input on the concatenated
+scale of their compound site ("conv3+conv6") and run group by group.
 """
 from __future__ import annotations
 
@@ -122,13 +124,14 @@ def quantize_static(x, sc):
     return quant_im2col(x.contiguous(), 1, sc).view(x.shape)
 
 
-def _int8_conv(x, w, *, mask, sx, impl):
+def _int8_conv(x, w, *, mask, sx, impl, groups=1):
     """Dynamic-scale int8 conv: sx (N,1,1,1) float32; weights quantized per
     output channel; the output in x's dtype (float32 for a non-float x)."""
     out_dt = x.dtype if x.is_floating_point() else torch.float32
     sw = _w_scales(w).float()
     w8 = quantize_plain(w, sw)
-    return int8_conv(x, w8, sw, out_dt, sx=sx, mask=mask, impl=impl)
+    return int8_conv(x, w8, sw, out_dt, sx=sx, mask=mask, impl=impl,
+                     groups=groups)
 
 
 def _check_impl(quant_impl):
@@ -150,18 +153,18 @@ class Int8Ops(TorchOps):
     def __init__(self, quant_impl=None):
         self.quant_impl = _check_impl(quant_impl)
 
-    def conv2d(self, x, w, *, mask=None, name=None):
+    def conv2d(self, x, w, *, mask=None, groups=1, name=None):
         if _skip_quant(w):
-            return super().conv2d(x, w, mask=mask, name=name)
+            return super().conv2d(x, w, mask=mask, groups=groups, name=name)
         return _int8_conv(x, w, mask=mask, sx=_x_scale(x).float(),
-                          impl=self.quant_impl)
+                          impl=self.quant_impl, groups=groups)
 
 
 class _StaticHandoffMixin:
     """precommit / roundtrip of the static-scale backend."""
 
-    def _scale(self, name, x):
-        sc = _site_scale(self.act_scales, name, 1)
+    def _scale(self, name, x, groups=1):
+        sc = _site_scale(self.act_scales, name, groups)
         return None if sc is None else sc.to(x.device)
 
     def _quantize(self, x, sc):
@@ -210,32 +213,33 @@ class Int8StaticOps(_StaticHandoffMixin, TorchOps):
         self.compute_dtype = compute_dtype
         self.quant_impl = _check_impl(quant_impl)
 
-    def conv2d(self, x, w, *, mask=None, name=None):
+    def conv2d(self, x, w, *, mask=None, groups=1, name=None):
         if _skip_quant(w):
-            return super().conv2d(x, w, mask=mask, name=name)
-        sc = self._scale(name, x)
+            return super().conv2d(x, w, mask=mask, groups=groups, name=name)
+        sc = self._scale(name, x, groups)
         if sc is None:
             if x.dtype == torch.int8:
                 raise ValueError(
                     f"pre-quantized input at uncalibrated site {name!r}")
             return _int8_conv(x, w, mask=mask, sx=_x_scale(x).float(),
-                              impl=self.quant_impl)
+                              impl=self.quant_impl, groups=groups)
         if x.dtype == torch.int8:
             out_dt, xs = self.compute_dtype, None
         else:
             out_dt = (x.dtype if x.is_floating_point()
                       else self.compute_dtype)
             xs = sc
-        w8, sw = _fold_weights(w, sc)
+        w8, sw = _fold_weights(w, sc, groups)
         return int8_conv(x, w8, sw, out_dt, sc=xs, mask=mask,
-                         impl=self.quant_impl)
+                         impl=self.quant_impl, groups=groups)
 
 
 class CalibrationOps(TorchOps):
     """Float backend that records per-input-channel absmax per site.
 
     `absmax`: {site: (C,) float32}, the max over every call. Padded
-    batches are safe: zero padding never raises an absmax.
+    batches are safe: zero padding never raises an absmax. A grouped site
+    records under its compound name, over all C input channels.
     """
 
     def __init__(self):
@@ -246,10 +250,10 @@ class CalibrationOps(TorchOps):
         prev = self.absmax.get(name)
         self.absmax[name] = am if prev is None else torch.maximum(prev, am)
 
-    def conv2d(self, x, w, *, mask=None, name=None):
+    def conv2d(self, x, w, *, mask=None, groups=1, name=None):
         if name is not None and not _skip_quant(w):
             self._record(name, x)
-        return super().conv2d(x, w, mask=mask, name=name)
+        return super().conv2d(x, w, mask=mask, groups=groups, name=name)
 
     def roundtrip(self, x, name=None):
         """Record the handoff site too, so calibrations ship its grid."""

@@ -82,8 +82,7 @@ def test_eval_default_device_is_the_card():
             tcli._device(args.device)
 
 
-@pytest.mark.parametrize("flag", ["--tile-devices=2", "--dp-devices=2",
-                                  "--profile=x", "--resume"])
+@pytest.mark.parametrize("flag", ["--tile-devices=2", "--dp-devices=2"])
 def test_unported_flags_are_not_in_the_parser(flag, capsys):
     with pytest.raises(SystemExit):
         tcli._build_argparser().parse_args(["eval", flag])
@@ -212,10 +211,13 @@ def test_act_scales_are_split_off_for_every_dtype(tmp_path):
 
 
 def test_eval_refuses_torch_checkpoints(tmp_path):
+    """Torch `.pth` checkpoints are read now
+    (tests/test_torch_cli_tools.py::test_eval_pth_equals_npz); what
+    `--ckpt` refuses is an extension that is neither .npz nor .pth."""
     data = str(tmp_path / "d")
     write_scale_dir(data, SIZES[:1])
-    with pytest.raises(SystemExit, match="npz"):
-        tcli.main(["eval", "--data-dir", data, "--ckpt", "model.pth",
+    with pytest.raises(SystemExit, match=r"\.npz or a torch \.pth"):
+        tcli.main(["eval", "--data-dir", data, "--ckpt", "model.ckpt",
                    "--device", "cpu"])
 
 

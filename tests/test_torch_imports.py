@@ -51,7 +51,8 @@ def test_card_files_exist():
     for need in ("codon_tpu_torch/cli.py", "codon_tpu_torch/kernels/cac.py",
                  "codon_tpu_torch/models/codon_net.py", "chip_smoke.py",
                  "codon_tpu_torch/quant_ops.py",
-                 "codon_tpu_torch/kernels/quant.py"):
+                 "codon_tpu_torch/kernels/quant.py",
+                 "codon_tpu_torch/checkpoint/torch_convert.py"):
         assert need in names
     assert all(os.path.exists(p) for p in _card_files())
 
@@ -76,6 +77,24 @@ v = get_variant("codon")
 p = v.init(torch.Generator().manual_seed(0), "cpu")
 out = v.forward(p, torch.rand(1, 9, 7, 1), torch.rand(1, 9, 7, 1))
 assert out.shape == (1, 9, 7, 1)
+# the .pth path: a reference-named state dict written, read back through
+# the cli's loader, and run through the other two forwards
+import contextlib, io, os, tempfile
+from codon_tpu_torch import cli
+from codon_tpu_torch.checkpoint.torch_convert import (
+    params_to_torch_state_dict)
+sd = params_to_torch_state_dict(p, v.cfg, module_prefix=True)
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "m.pth")
+    torch.save({{"epoch": 1, "model": {{k: torch.from_numpy(a.copy())
+                                      for k, a in sd.items()}}}}, path)
+    for name in ("codon_fused", "rmcr_fuse_rmcr"):
+        fv = get_variant(name)
+        with contextlib.redirect_stdout(io.StringIO()):
+            q, scales = cli._load_params(path, fv, "cpu")
+        assert scales is None
+        out = fv.forward(q, torch.rand(1, 9, 7, 1), torch.rand(1, 9, 7, 1))
+        assert out.shape == (1, 9, 7, 1)
 print("ok")
 """
 

@@ -271,3 +271,113 @@ ptxas info    : Used 8 registers, 424 bytes cmem[0]
     monkeypatch.setattr(_build, "nvcc", lambda: str(tmp_path / "nvcc"))
     report = "Compiling entry function '_ZN2ns9kernel_abEv' for 'sm_90a'"
     assert _build.demangle(report) == report
+
+
+# ---------------------------------------------------------------------------
+# towers as channel windows (the merged-tower forward's halves of T) and
+# the quant kernels' channel windows: the plain versions' pitch / window
+# arguments against contiguous calls on copies
+# ---------------------------------------------------------------------------
+
+def _merged(seed, masked):
+    """(T, inputs2): two (N,H,W,2C) tensors whose halves are the towers."""
+    out, out_c, inp, inp_c = [to_torch(t) for t in cac_towers(seed, masked)]
+    return torch.cat([out, out_c], -1), torch.cat([inp, inp_c], -1)
+
+
+def test_tower_pitch():
+    t = torch.zeros((N, H, W, 2 * C))
+    assert tcac.tower_pitch(t) == 2 * C
+    assert tcac.tower_pitch(t[..., :C]) == tcac.tower_pitch(t[..., C:]) \
+        == 2 * C
+    assert tcac.tower_pitch(t[..., :C].contiguous()) == C
+    assert tcac.tower_pitch(t[..., :C].transpose(1, 2)) is None
+    assert tcac.tower_pitch(t[:, ::2, :, :C]) is None       # rows skipped
+    assert tcac.tower_pitch(t[..., ::2]) is None            # channels apart
+    # the wrappers' checks take the halves, and refuse towers whose
+    # pitches differ
+    assert tcac._check_towers(t[..., :C], t[..., C:]) == 2 * C
+    with pytest.raises(ValueError, match="pitch"):
+        tcac._check_towers(t[..., :C], t[..., C:].contiguous())
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_stats_plain_on_halves_equals_copies(masked):
+    T, _ = _merged(30, masked)
+    m = to_torch(cac_mask()) if masked else None
+    got = tcac.cac_stats(T[..., :C], T[..., C:], m)
+    want = tcac.cac_stats(T[..., :C].contiguous(), T[..., C:].contiguous(), m)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_apply_plain_writes_both_halves(dtype):
+    T, inputs2 = [t.to(dtype) for t in _merged(31, True)]
+    rng = np.random.RandomState(32)
+    gate = to_torch(rng.rand(N, 1, C).astype(np.float32))
+    logits = to_torch(rng.randn(N, H, W).astype(np.float32)).to(dtype)
+    nxt = torch.full_like(T, float("nan"))
+    got = tcac.cac_apply(T[..., :C], T[..., C:], inputs2[..., :C],
+                         inputs2[..., C:], gate, logits,
+                         dst=(nxt[..., :C], nxt[..., C:]))
+    assert got[0].data_ptr() == nxt.data_ptr()
+    want = tcac.cac_apply(T[..., :C].contiguous(), T[..., C:].contiguous(),
+                          inputs2[..., :C].contiguous(),
+                          inputs2[..., C:].contiguous(), gate, logits)
+    assert torch.equal(nxt, torch.cat(want, -1))
+
+
+def test_stage_on_halves_equals_packed_stage():
+    """The composed stage as the fused forward calls it, on the halves of
+    T with dst, equals the packed forward's call on copies."""
+    T, inputs2 = _merged(33, True)
+    m = to_torch(cac_mask())
+    ws = [to_torch(w) for w in cac_weights(34)]
+    nxt = torch.empty_like(T)
+    tcac.cac_stage(T[..., :C], T[..., C:], inputs2[..., :C],
+                   inputs2[..., C:], *ws, m, dst=(nxt[..., :C], nxt[..., C:]))
+    want = tcac.cac_stage(T[..., :C].contiguous(), T[..., C:].contiguous(),
+                          inputs2[..., :C].contiguous(),
+                          inputs2[..., C:].contiguous(), *ws, m)
+    assert torch.equal(nxt, torch.cat(want, -1))
+
+
+@pytest.mark.parametrize("k", [1, 3, 5])
+@pytest.mark.parametrize("mode", ["int8", "channel", "sample"])
+def test_quant_im2col_plain_window_equals_copy(k, mode):
+    from codon_tpu_torch.kernels import quant as kq
+    rng = np.random.RandomState(40 + k)
+    x = to_torch(rng.randn(2, 9, 7, 128).astype(np.float32) * 3)
+    sc = to_torch((rng.rand(128) * 0.05 + 0.005).astype(np.float32))
+    sx = to_torch((rng.rand(2) * 0.05 + 0.005).astype(np.float32))
+    if mode == "int8":
+        x, a, b = kq.quantize_plain(x, sc), None, None
+    else:
+        a, b = (sc, None) if mode == "channel" else (None, sx)
+    for c0 in (0, 64):
+        got = kq.quant_im2col(x, k, a, b, c0=c0, cg=64)
+        codes = x if mode == "int8" else kq.quant_im2col(x, 1, a, b).view(
+            x.shape)
+        want = kq.quant_im2col(codes[..., c0:c0 + 64].contiguous(), k)
+        assert got.shape == (2 * 9 * 7, k * k * 64)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
+def test_dequant_epilogue_plain_window_equals_copy(dynamic):
+    from codon_tpu_torch.kernels import quant as kq
+    g = torch.Generator().manual_seed(50)
+    acc = torch.randint(-2 ** 20, 2 ** 20, (2 * 9 * 7, 64), generator=g,
+                        dtype=torch.int32)
+    sw = torch.rand(64, generator=g) * 1e-3
+    sx = torch.rand(2, generator=g) * 0.05 if dynamic else None
+    m = torch.ones((2, 9, 7, 1), dtype=torch.bfloat16)
+    m[1, 4:] = 0
+    out = torch.full((2, 9, 7, 128), 7.0, dtype=torch.bfloat16)
+    kq.dequant_epilogue(acc, sw, torch.bfloat16, (2, 9, 7), sx, m, out=out,
+                        o0=64)
+    want = kq.dequant_epilogue(acc, sw, torch.bfloat16, (2, 9, 7), sx, m)
+    assert torch.equal(out[..., 64:], want)
+    assert bool((out[..., :64] == 7.0).all())

@@ -592,3 +592,254 @@ def test_cuda_int8_forward_kernels_match_plain(ckpt):
     assert counts == {"quant_im2col": 43 + handoffs, "dequant_epilogue": 43,
                       "int8_gemm": 43}
     assert bool(torch.isfinite(k).all()) and torch.equal(k, p)
+
+
+# ---------------------------------------------------------------------------
+# the merged-tower forward's kernels: CAC kernels on the halves of one
+# (N, H, W, 2C) tensor (a tower pitch of 2C), the quant kernels on channel
+# and output windows (grouped int8 convs)
+# ---------------------------------------------------------------------------
+
+def _merged_inputs(dtype, seed, shape=(N, H, W, C), valid=None):
+    """T and inputs2, (N,H,W,2C), zero on padding, and the rest of a
+    stage's inputs."""
+    n, h, w, c = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mask = torch.zeros((n, h, w, 1), device="cuda")
+    for i, (vh, vw) in enumerate(valid or [(h, w)] * n):
+        mask[i, :vh, :vw] = 1.0
+    T, inputs2 = [(torch.randn((n, h, w, 2 * c), generator=g, device="cuda")
+                   * mask).to(dtype).contiguous() for _ in range(2)]
+    gate = torch.rand((n, 1, c), generator=g, device="cuda")
+    logits = torch.randn((n, h, w), generator=g, device="cuda").to(dtype)
+    return T, inputs2, mask.to(dtype), gate, logits
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("shape,valid", [
+    ((N, H, W, C), [(H, W), (19, 15)]),
+    ((2, 384, 480, C), [(370, 463), (375, 450)]),
+], ids=["odd", "main"])
+@needs_cuda
+def test_cuda_pitched_stats_matches_plain(dtype, masked, shape, valid):
+    T, _, m, _, _ = _merged_inputs(dtype, 130, shape, valid)
+    m = m if masked else None
+    c = shape[-1]
+    n0 = tcac.cac_stats.launches
+    got = tcac.cac_stats(T[..., :c], T[..., c:], m)
+    assert tcac.cac_stats.launches == n0 + 1
+    want = tcac.cac_stats_plain(T[..., :c], T[..., c:], m)
+    npix = shape[1] * shape[2]
+    atol, rtol = {torch.float16: (2 ** -9, 2 ** -9)}.get(
+        dtype, CUDA_TOLS.get(dtype))
+    _close(got[0] / npix, want[0] / npix, *CUDA_TOLS[torch.float32])
+    _close(got[1], want[1], *CUDA_TOLS[torch.float32])
+    for g, w in zip(got[2:], want[2:]):
+        _close(g, w, atol, rtol)
+    # the same numbers as the contiguous towers give the kernel
+    flat = tcac.cac_stats(T[..., :c].contiguous(), T[..., c:].contiguous(),
+                          m)
+    for a, b in zip(got, flat):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("into", ["merged", "towers"])
+@needs_cuda
+def test_cuda_pitched_apply_matches_plain(dtype, into):
+    """Inputs at pitch 2C; outputs into both halves of one new tensor, or
+    into two contiguous towers: the kernel's bits equal the contiguous
+    call's, and the plain version's within the stage tolerances."""
+    T, inputs2, _, gate, logits = _merged_inputs(dtype, 131)
+    halves = (T[..., :C], T[..., C:], inputs2[..., :C], inputs2[..., C:])
+    if into == "merged":
+        nxt = torch.full_like(T, float("nan"))
+        dst = (nxt[..., :C], nxt[..., C:])
+    else:
+        dst = None
+    n0 = tcac.cac_apply.launches
+    got = tcac.cac_apply(*halves, gate, logits, dst=dst)
+    assert tcac.cac_apply.launches == n0 + 1
+    flat = tcac.cac_apply(*[t.contiguous() for t in halves], gate, logits)
+    for a, b in zip(got, flat):
+        assert torch.equal(a, b)
+    want = tcac.cac_apply_plain(*halves, gate, logits)
+    atol, rtol = {torch.float16: (2 ** -9, 2 ** -9)}.get(
+        dtype, CUDA_TOLS.get(dtype))
+    for g, w in zip(got, want):
+        _close(g, w, atol, rtol)
+    if into == "merged":
+        assert not bool(torch.isnan(nxt).any())
+
+
+@needs_cuda
+def test_cuda_pitched_wrappers_refuse_mixed_pitches():
+    T, inputs2, m, gate, logits = _merged_inputs(torch.float32, 132)
+    with pytest.raises(ValueError, match="pitch"):
+        tcac.cac_stats(T[..., :C], T[..., C:].contiguous(), m)
+    with pytest.raises(ValueError, match="pitch"):
+        tcac.cac_apply(T[..., :C], T[..., C:], inputs2[..., :C].contiguous(),
+                       inputs2[..., C:], gate, logits)
+    with pytest.raises(ValueError):                 # dst of another dtype
+        nxt = torch.empty_like(T, dtype=torch.bfloat16)
+        tcac.cac_apply(T[..., :C], T[..., C:], inputs2[..., :C],
+                       inputs2[..., C:], gate, logits,
+                       dst=(nxt[..., :C], nxt[..., C:]))
+
+
+@pytest.mark.parametrize("dtype", QUANT_DTYPES, ids=QUANT_IDS)
+@pytest.mark.parametrize("k", [1, 3, 5])
+@pytest.mark.parametrize("c,cg", [(128, 64), (256, 128), (64, 16)],
+                         ids=["128-64", "256-128", "64-16"])
+@needs_cuda
+def test_cuda_windowed_im2col_matches_plain(dtype, k, c, cg):
+    from codon_tpu_torch.kernels import quant as kq
+    x, sc, sx = _quant_input((N, H, W, c), dtype, seed=140 + k)
+    scales = ([(None, None)] if dtype == torch.int8
+              else [(sc, None), (None, sx)])
+    for a, b in scales:
+        for c0 in range(0, c, cg):
+            got = kq.quant_im2col(x, k, a, b, c0=c0, cg=cg)
+            want = kq.quant_im2col_plain(x, k, a, b, c0=c0, cg=cg)
+            assert got.shape == (N * H * W, k * k * cg)
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@needs_cuda
+def test_cuda_windowed_epilogue_matches_plain(dtype, masked):
+    from codon_tpu_torch.kernels import quant as kq
+    g = torch.Generator(device="cuda").manual_seed(150)
+    acc = torch.randint(-2 ** 12, 2 ** 12, (N * H * W, 64), generator=g,
+                        device="cuda", dtype=torch.int32)
+    sw = torch.rand((64,), generator=g, device="cuda") * 1e-3
+    m = to_torch(cac_mask(), "cuda").to(dtype) if masked else None
+    for o0 in (0, 64, 192):
+        got = torch.full((N, H, W, 256), -1.0, device="cuda").to(dtype)
+        want = got.clone()
+        kq.dequant_epilogue(acc, sw, dtype, (N, H, W), None, m, out=got,
+                            o0=o0)
+        kq.dequant_epilogue_plain(acc, sw, dtype, (N, H, W), None, m,
+                                  out=want, o0=o0)
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="window"):
+        kq.dequant_epilogue(acc, sw, dtype, (N, H, W), None, m,
+                            out=got, o0=200)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8], ids=["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("k,c,co", [(3, 128, 128), (5, 256, 256),
+                                    (1, 256, 128)])
+@needs_cuda
+def test_cuda_grouped_int8_conv_matches_plain(dtype, k, c, co, monkeypatch):
+    """groups=2 over image blocks: one quantize a block (float input),
+    then a gather, a GEMM and an epilogue a group; bitwise."""
+    from codon_tpu_torch.kernels import quant as kq
+    shape = (3, 37, 29, c)
+    x, sc, sx = _quant_input(shape, dtype, seed=160 + k)
+    g = torch.Generator(device="cuda").manual_seed(161)
+    w8 = torch.randint(-127, 128, (k, k, c // 2, co), generator=g,
+                       device="cuda", dtype=torch.int8)
+    sw = torch.rand((co,), generator=g, device="cuda") * 1e-3
+    m = torch.ones(shape[:3] + (1,), device="cuda")
+    m[-1, 20:] = 0
+    out_dt = torch.float32 if dtype == torch.int8 else dtype
+    scales = ([(None, None)] if dtype == torch.int8
+              else [(sc, None), (None, sx)])
+    # two images a block: blocks of 2 and 1
+    monkeypatch.setattr(kq, "PATCH_BYTES_MAX", 2 * 37 * 29 * k * k * c // 2)
+    for a, b in scales:
+        before = kq.launches()
+        got = kq.int8_conv(x, w8, sw, out_dt, sc=a, sx=b, mask=m, groups=2)
+        after = kq.launches()
+        quantize = 0 if dtype == torch.int8 else 2
+        assert after["quant_im2col"] - before["quant_im2col"] == 4 + quantize
+        assert after["int8_gemm"] - before["int8_gemm"] == 4
+        assert after["dequant_epilogue"] - before["dequant_epilogue"] == 4
+        want = kq.int8_conv(x, w8, sw, out_dt, sc=a, sx=b, mask=m, groups=2,
+                            impl="plain")
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("variant", ["codon_fused", "rmcr_fuse_rmcr"])
+@needs_cuda
+def test_cuda_other_forwards_kernel_path_matches_torch_path(variant):
+    """fp32: the fused forward's CAC kernels on the halves of T against
+    its plain stage (1e-4, as the packed forward), and both against the
+    packed `codon` forward (2e-4 / 1e-3, the JAX test's); the sequential
+    forward launches no CAC kernel."""
+    from codon_tpu_torch.checkpoint.native import load_npz, params_from_numpy
+    from codon_tpu_torch.models.variants import get_variant
+    params = params_from_numpy(
+        load_npz(os.path.join(CKPT_DIR, "x4_ship4.npz")), "cuda")
+    rng = np.random.RandomState(170)
+    d = to_torch(rng.rand(N, H, W, 1).astype(np.float32), "cuda")
+    c = to_torch(rng.rand(N, H, W, 1).astype(np.float32), "cuda")
+    m = to_torch(cac_mask(), "cuda")
+    v = get_variant(variant)
+    tcac.reset_launches()
+    k = v.forward_fn(params, d, c, mask=m,
+                     cfg=dataclasses.replace(v.cfg, cac_impl="kernel"))
+    counts = tcac.launches()
+    t = v.forward_fn(params, d, c, mask=m,
+                     cfg=dataclasses.replace(v.cfg, cac_impl="torch"))
+    assert bool(torch.isfinite(k).all())
+    assert float((k - t).abs().max()) <= 1e-4
+    want = 5 if variant == "codon_fused" else 0
+    assert counts == {"cac_stats": want, "spatial_logits": want,
+                      "cac_apply": want}
+    if variant == "codon_fused":
+        packed = get_variant("codon").forward(params, d, c, mask=m)
+        assert torch.allclose(k, packed, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("variant", ["codon_fused", "rmcr_fuse_rmcr"])
+@pytest.mark.parametrize("ckpt", ["x4_ship4_qat_static.npz",
+                                  "x4_ship4_qat.npz"])
+@needs_cuda
+def test_cuda_other_int8_forwards_kernels_match_plain(variant, ckpt):
+    """fp32 int8 forwards of the two other variants, the quant kernels
+    against their plain versions, the CAC kernels in both: bitwise."""
+    from codon_tpu_torch.checkpoint.native import load_npz, params_from_numpy
+    from codon_tpu_torch.kernels import quant as kq
+    from codon_tpu_torch.models.variants import get_variant
+    from codon_tpu_torch.quant_ops import Int8Ops, Int8StaticOps
+    tree = load_npz(os.path.join(CKPT_DIR, ckpt))
+    scales = tree.pop("act_scales", None)
+    params = params_from_numpy(tree, "cuda")
+    rng = np.random.RandomState(180)
+    d = to_torch(rng.rand(N, H, W, 1).astype(np.float32), "cuda")
+    c = to_torch(rng.rand(N, H, W, 1).astype(np.float32), "cuda")
+    m = to_torch(cac_mask(), "cuda")
+    v = get_variant(variant)
+    cfg = dataclasses.replace(v.cfg, cac_impl="kernel")
+
+    def ops(impl):
+        return (Int8StaticOps(scales, quant_impl=impl) if scales is not None
+                else Int8Ops(quant_impl=impl))
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        kq.reset_launches()
+        k = v.forward_fn(params, d, c, mask=m, cfg=cfg, ops=ops(None))
+        counts = kq.launches()
+        p = v.forward_fn(params, d, c, mask=m, cfg=cfg, ops=ops("plain"))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    if variant == "codon_fused":
+        # 4 grouped sites a stage x 5 and conv_input+conv_input_c, each a
+        # quantize and 2 gathers, 2 GEMMs and 2 epilogues; 14 ungrouped
+        # convs: conv7, (conv8, conv9, conv10, confuse_fuse) x 3, conv11
+        grouped, plain_convs = 21, 1 + 4 * 3 + 1
+    else:
+        # the stems' second convs, (packed, conv3/6, confuse) x 5 a tower,
+        # conv7, (packed_f, conv10, confuse_fuse) x 3, conv11; no handoffs
+        grouped, plain_convs = 0, 2 + 3 * 5 * 2 + 1 + 3 * 3 + 1
+    assert counts == {"quant_im2col": 3 * grouped + plain_convs,
+                      "dequant_epilogue": 2 * grouped + plain_convs,
+                      "int8_gemm": 2 * grouped + plain_convs}
+    assert bool(torch.isfinite(k).all()) and torch.equal(k, p)

@@ -200,7 +200,8 @@ def test_fp16_forward_tracks_jax_fp16():
 
 @pytest.mark.parametrize("name", ["codon", "codon_x16", "codonet_x16_model",
                                   "codon_sc", "codon_f4", "codon_f5",
-                                  "codon_f6", "codon_f7"])
+                                  "codon_f6", "codon_f7", "codon_fused",
+                                  "rmcr_fuse_rmcr"])
 def test_variant_configs_and_init_match_jax(name):
     jv, tv = jax_variant(name, JFP32), get_variant(name)
     for field in ("width", "num_mc", "num_fuse", "in_channels", "use_cac",
@@ -215,11 +216,17 @@ def test_variant_configs_and_init_match_jax(name):
 
 
 def test_registry_holds_the_ported_variants():
+    from codon_tpu.models.variants import list_variants as jax_list
     assert list_variants() == sorted(
         ["codon", "codon_sc", "codon_x16", "codonet_x16_model", "codon_f4",
-         "codon_f5", "codon_f6", "codon_f7"])
+         "codon_f5", "codon_f6", "codon_f7", "codon_fused",
+         "rmcr_fuse_rmcr"])
+    # the JAX registry less its ablation zoo
+    assert list_variants() == [n for n in jax_list()
+                               if not n.startswith("zoo:")]
     with pytest.raises(KeyError, match="unknown variant"):
-        get_variant("codon_fused")
+        get_variant("zoo:" + next(n for n in jax_list()
+                                  if n.startswith("zoo:"))[4:])
 
 
 def test_f_variants_share_codon_checkpoints():
@@ -275,3 +282,74 @@ def test_full_fp32_turns_tf32_off_and_restores():
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+# ---------------------------------------------------------------------------
+# the merged-tower and sequential-tower forwards
+# ---------------------------------------------------------------------------
+
+def _mixed_mask(n=2, h=H, w=W):
+    m = np.ones((n, h, w, 1), np.float32)
+    m[-1, 21:] = 0.0
+    m[-1, :, 17:] = 0.0
+    return m
+
+
+@pytest.mark.parametrize("cac_impl", ["torch", "kernel"])
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("variant", ["codon_fused", "rmcr_fuse_rmcr"])
+def test_other_forwards_match_jax(variant, masked, cac_impl):
+    """fp32, atol 5e-4 / rtol 1e-3. For codon_fused, cac_impl="kernel" on
+    CPU tensors is the kernels' composition on the halves of T (their
+    plain versions); rmcr_fuse_rmcr has no CAC stage."""
+    path = os.path.join(CKPT_DIR, "x4_ship4.npz")
+    d, c = _inputs(seed=11)
+    m = _mixed_mask() if masked else None
+    want = np.asarray(jax_variant(variant, JFP32).forward(
+        jax_load_npz(path), jnp.asarray(d), jnp.asarray(c),
+        mask=None if m is None else jnp.asarray(m)))
+    tv = get_variant(variant)
+    cfg = dataclasses.replace(tv.cfg, cac_impl=cac_impl)
+    got = tv.forward_fn(params_from_numpy(load_npz(path), "cpu"),
+                        to_torch(d), to_torch(c), cfg=cfg,
+                        mask=None if m is None else to_torch(m))
+    assert got.dtype == torch.float32 and tuple(got.shape) == d.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+def test_fused_forward_equals_packed_forward():
+    """The same function and checkpoint as `codon`: the JAX package holds
+    its fused form to the packed one within 2e-4 / 1e-3."""
+    params = params_from_numpy(
+        load_npz(os.path.join(CKPT_DIR, "x4_ship4.npz")), "cpu")
+    d, c = _inputs(seed=12)
+    m = to_torch(_mixed_mask())
+    fused = get_variant("codon_fused").forward(params, to_torch(d),
+                                               to_torch(c), mask=m)
+    packed = get_variant("codon").forward(params, to_torch(d), to_torch(c),
+                                          mask=m)
+    np.testing.assert_allclose(fused.numpy(), packed.numpy(), atol=2e-4,
+                               rtol=1e-3)
+
+
+def test_fused_forward_refuses_swapped_color_cat():
+    params = params_from_numpy(
+        load_npz(os.path.join(CKPT_DIR, "x16_ship5.npz")), "cpu")
+    d, c = _inputs(1, 9, 7)
+    with pytest.raises(NotImplementedError, match="color_cat_swapped"):
+        tnet.codon_forward_fused(params, to_torch(d), to_torch(c),
+                                 cfg=get_variant("codonet_x16_model").cfg)
+
+
+def test_sequential_forward_ignores_cac_and_dead_heads():
+    """rmcr_fuse_rmcr reads only the convs: a `codon` checkpoint, CAC heads
+    and all, gives what its conv weights alone give."""
+    tree = load_npz(os.path.join(CKPT_DIR, "x4_ship4.npz"))
+    convs = {k: v for k, v in tree.items()
+             if k not in ("cac", "attention_c5", "attention_s5")}
+    d, c = _inputs(1, seed=13)
+    v = get_variant("rmcr_fuse_rmcr")
+    full = v.forward(params_from_numpy(tree, "cpu"), to_torch(d), to_torch(c))
+    bare = v.forward(params_from_numpy(convs, "cpu"), to_torch(d),
+                     to_torch(c))
+    assert torch.equal(full, bare)

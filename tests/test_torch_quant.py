@@ -501,3 +501,127 @@ def test_calibrate_act_scales_matches_jax():
     for k in want:
         assert got[k].dtype == np.float32 and got[k].shape == want[k].shape
         np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# grouped convs: the merged-tower forward's
+# ---------------------------------------------------------------------------
+
+# (k, C_in, C_out) of codon_fused's grouped quantized sites, at groups=2:
+# conv_input+conv_input_c / conv1+conv5, conv2+conv4, conv3+conv6,
+# confuse+confuse_c
+GROUPED = [(3, 128, 128), (5, 128, 128), (5, 256, 256), (1, 256, 128)]
+
+
+def _grouped_pair(backend, dt, k, ci, co, int8_input, masked, seed):
+    jdt, tdt = DTYPES[dt]
+    shape = XSHAPE[:3] + (ci,)
+    x = _x(seed, shape)
+    w = _weights(k, ci=ci // 2, co=co, seed=seed + 1)
+    sc = _scales(ci, seed + 2)
+    m = _mask(shape) if masked else None
+    name = "a+b"
+    if backend == "static":
+        jops = jq.Int8StaticOps({name: sc}, compute_dtype=jdt)
+        tops = tq.Int8StaticOps({name: sc}, compute_dtype=tdt)
+    else:
+        jops, tops = jq.Int8Ops(), tq.Int8Ops()
+    xj, xt = jnp.asarray(x).astype(jdt), to_torch(x).to(tdt)
+    if int8_input:
+        xj = jq.quantize_static(xj, jnp.asarray(sc))
+        xt = tq.quantize_static(xt, to_torch(sc))
+    want = jops.conv2d(xj, jnp.asarray(w), groups=2, name=name,
+                       mask=None if m is None else jnp.asarray(m))
+    got = tops.conv2d(xt, to_torch(w), groups=2, name=name,
+                      mask=None if m is None else to_torch(m))
+    assert got.dtype == tdt and tuple(got.shape) == shape[:3] + (co,)
+    return got, want
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("k,ci,co", GROUPED,
+                         ids=["3x3-128", "5x5-128", "5x5-256", "1x1-256"])
+@pytest.mark.parametrize("backend,int8_input,masked", [
+    ("static", False, False), ("static", False, True),
+    ("static", True, True), ("dynamic", False, False),
+    ("dynamic", False, True)],
+    ids=["static", "static-masked", "static-int8-masked", "dynamic",
+         "dynamic-masked"])
+def test_grouped_conv_matches_jax(backend, k, ci, co, dt, int8_input,
+                                  masked):
+    """groups=2: bitwise in fp32, one bf16 ulp in bf16, as the ungrouped
+    convs (the same int8 codes, the int32 sums of each group exact)."""
+    got, want = _grouped_pair(backend, dt, k, ci, co, int8_input, masked,
+                              seed=70 + k + ci // 64)
+    _same(got, want, dt)
+
+
+def test_grouped_int8_conv_is_two_convs():
+    """int8_conv(groups=2) equals each group's ungrouped int8_conv on its
+    channel window, concatenated: the window arguments of the plain
+    gather and epilogue select the right channels."""
+    rng = np.random.RandomState(80)
+    x = to_torch(_x(81, (2, 9, 7, 128)))
+    w8 = torch.from_numpy(rng.randint(-127, 128, (3, 3, 64, 96)).astype(
+        np.int8))
+    sw = to_torch(_scales(96, 82))
+    sc = to_torch(_scales(128, 83))
+    m = to_torch(_mask((2, 9, 7, 128)))
+    got = kq.int8_conv(x, w8, sw, torch.float32, sc=sc, mask=m, groups=2)
+    parts = [kq.int8_conv(x[..., g * 64:(g + 1) * 64].contiguous(),
+                          w8[..., g * 48:(g + 1) * 48].contiguous(),
+                          sw[g * 48:(g + 1) * 48].contiguous(),
+                          torch.float32, sc=sc[g * 64:(g + 1) * 64]
+                          .contiguous(), mask=m) for g in range(2)]
+    assert torch.equal(got, torch.cat(parts, -1))
+
+
+def test_calibration_records_compound_sites():
+    """CalibrationOps records a grouped site under its compound name, over
+    all C input channels, as JAX's does: conv3+conv6 as (256,)."""
+    import jax
+    params = jax.tree.map(np.asarray, jax_variant("codon").init(
+        jax.random.PRNGKey(1)))
+    d, c = _image(20)
+    want = jq.calibrate_act_scales(
+        jax_variant("codon_fused").forward, params,
+        [(jnp.asarray(d), jnp.asarray(c), None)])
+    got = tq.calibrate_act_scales(
+        get_variant("codon_fused").forward, params_from_numpy(params, "cpu"),
+        [(to_torch(d), to_torch(c), None)])
+    assert sorted(got) == sorted(want)
+    assert got["conv3+conv6"].shape == (256,)
+    assert got["conv_input+conv_input_c"].shape == (128,)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("kind", ["static", "dynamic"])
+@pytest.mark.parametrize("variant", ["codon_fused", "rmcr_fuse_rmcr"])
+def test_other_int8_forwards_track_jax(variant, kind, dt):
+    """The merged-tower forward (its compound sites resolve through the
+    packed sites' scales, no recalibration) and the sequential one, int8,
+    in the flip class of test_int8_forward_tracks_jax."""
+    jt, sc, tt = _ckpt(STATIC if kind == "static" else DYNAMIC)
+    d, c = _image(2)
+    jv, tv = jax_variant(variant, JPOLICIES[dt]), get_variant(
+        variant, TPOLICIES[dt])
+    jdt, tdt = DTYPES[dt]
+    if kind == "static":
+        jops = jq.Int8StaticOps(sc, compute_dtype=jdt)
+        tops = tq.Int8StaticOps(sc, compute_dtype=tdt)
+    else:
+        jops, tops = jq.Int8Ops(), tq.Int8Ops()
+    want = np.asarray(jv.forward(jt, jnp.asarray(d), jnp.asarray(c),
+                                 ops=jops))
+    got = tv.forward(params_from_numpy(tt, "cpu"), to_torch(d), to_torch(c),
+                     ops=tops)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (1, H, W, 1)
+    diff = np.abs(got.numpy() - want)
+    mean_b, max_b = BOUNDS[kind]
+    assert diff.mean() <= mean_b and diff.max() <= max_b, (diff.mean(),
+                                                           diff.max())
+    if kind == "static":
+        flt = np.asarray(jv.forward(jt, jnp.asarray(d), jnp.asarray(c)))
+        assert diff.mean() < 0.25 * np.abs(want - flt).mean()

@@ -94,3 +94,22 @@ def cac_weights(seed=1):
     b2 = rng.uniform(-1, 1, (C,)).astype(np.float32) / np.sqrt(8)
     sp_w = (rng.randn(5, 5, 2, 1) * np.sqrt(2 / 25)).astype(np.float32)
     return w1, b1, w2, b2, sp_w
+
+
+class RefNet(torch.nn.Module):
+    """A stand-in for the reference's pickled model: a module tree whose
+    state dict carries the given names ("conv3.weight",
+    "attention_c0.mlp.1.weight", ...) and values, and no forward. A `.pth`
+    that pickles one needs this class importable to load."""
+
+    def __init__(self, state_dict):
+        super().__init__()
+        for key, value in state_dict.items():
+            *path, leaf = key.split(".")
+            mod = self
+            for part in path:
+                if part not in mod._modules:
+                    mod.add_module(part, torch.nn.Module())
+                mod = mod._modules[part]
+            mod.register_parameter(leaf, torch.nn.Parameter(
+                torch.as_tensor(np.asarray(value)), requires_grad=False))
