@@ -92,13 +92,34 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
      `--profile`, `--check-nans` on a checkpoint with one NaN weight (it
      must raise FloatingPointError naming the site), `golden` on the main
      eval's PNGs and `info`;
- 23. prints the card's line again, the kernels' JSON line (eight kernels),
+ 23. holds one training step (`train.trainer`, b16 p64 patches of the
+     scale dir, x4_ship4's weights, bf16 and fp32) whose forward runs the
+     CAC kernels through `CacStageFunction` against the same step with the
+     plain stage: loss and every gradient leaf within TRAIN_TOLS, every
+     leaf the forward reads with a gradient, and 5 launches of each CAC
+     kernel in the step (the forward's; none in the backward);
+ 24. runs `cli train` (bf16, b16 p64) from x4_ship4 for 30 steps with
+     warmup, clip-norm, EMA and checkpoints every 10 steps, the CAC
+     counters set to 0 just before and read just after (5 each a step);
+     runs it again interrupted after its step-10 checkpoint and resumed:
+     the same batches, bitwise, and the final parameters within
+     RESUME_BOUND_LRS x lr a step; runs `--qat-static` from
+     x4_ship4_qat_static and scores its output with `cli eval --dtype
+     int8`; and runs 5 steps on the scale dir without input_depth/
+     (synthesized degradation);
+ 25. times a training step at b16 p64 in bf16 and fp32 (CUDA events), split
+     into forward, backward and optimizer, and the host sampler's ms a
+     batch;
+ 26. profiles 10 steps of the loop `cli train` runs (prefetch thread,
+     pinned copy, step) with torch.profiler: the device's idle share;
+ 27. prints the card's line again, the kernels' JSON line (eight kernels),
      then the contract line {"ok": true, "device": {...}} as the last line
      of its output.
 
-Phase 3 also holds cac_stats and cac_apply against their plain versions
-on the halves of a (N, H, W, 2C) tensor (a tower pitch of 2C) at the main
-and TTA8 shapes, and quant_im2col and dequant_epilogue on each group's
+Phase 3 holds the CAC kernels at the training path's shape too (16 x 64 x
+64, every pixel valid). It also holds cac_stats and cac_apply against
+their plain versions on the halves of a (N, H, W, 2C) tensor (a tower
+pitch of 2C) at the main, TTA8 and training shapes, and quant_im2col and dequant_epilogue on each group's
 channel and output window at every grouped shape of the b4 codon_fused
 forward, bitwise, each timed beside the contiguous kernel.
 
@@ -187,8 +208,13 @@ TTA_SHAPE = (16, 384, 480, 64)
 TTA_VALID = tta_valid(TTA_SIZES)
 TTA_T_SHAPE = (16, 480, 384, 64)
 TTA_T_VALID = tta_valid([(w, h) for h, w in TTA_SIZES])
+# where cli train gives them: a batch of 16 patches of 64 x 64, every
+# pixel valid (the sampler's mask is all ones)
+TRAIN_SHAPE = (16, 64, 64, 64)
+TRAIN_VALID = [(64, 64)] * 16
 STAGE_CASES = ((MAIN_SHAPE, MAIN_VALID), (ODD_SHAPE, ODD_VALID),
-               (TTA_SHAPE, TTA_VALID), (TTA_T_SHAPE, TTA_T_VALID))
+               (TTA_SHAPE, TTA_VALID), (TTA_T_SHAPE, TTA_T_VALID),
+               (TRAIN_SHAPE, TRAIN_VALID))
 # the copy probe's shape (scripts/perf_pallas_probe.py), bf16, and a small
 # one whose last tile is ragged for every tile; (name, view, the two tiles
 # of the probe's sweep) for each kernel
@@ -232,6 +258,32 @@ FUSED_INT8_CONVS = ((3, 128, 2, 128, 1), (3, 128, 2, 128, 5),
 FUSED_TOL = (2e-4, 1e-3)
 # the three forms of a reference .pth that phase 16 writes
 PTH_KINDS = ("state_dict", "epoch_model_module_prefix", "full_module")
+# training (phases 23-26): cli train's defaults, batches of 16 patches of
+# 64 x 64
+TRAIN_BATCH, TRAIN_PATCH = 16, 64
+TRAIN_STEPS = 30
+TIME_ITERS = 10             # timed training steps (and profiled ones)
+# one training step with the CAC stage through the kernels against the
+# same step with the plain stage, same batch and weights: (loss rtol, the
+# worst leaf's max |d| over its max |g|, the gradient tree's relative L2
+# distance). fp32, TF32 off: the kernels sum in another order, ~1e-7 of a
+# value, and a pre-activation that crosses 0 on one side only moves its
+# ReLU's whole gradient path, so single elements may move by a percent of
+# their leaf's max while the tree moves by ~1e-4: 1e-5 / 1e-2 / 1e-3.
+# bf16: the plain stage pools, runs the MLP and the gates in bf16 where the
+# kernels keep float32 and round the gate once, a bf16 ulp apart that
+# cascades: 1e-2 / 0.25 / 0.1, and the kernel step no more than
+# BF16_CLASS times farther from the fp32 step's gradient than the plain
+# bf16 step is (bf16's own error sets the scale)
+TRAIN_TOLS = {"fp32": (1e-5, 1e-2, 1e-3), "bf16": (1e-2, 0.25, 0.1)}
+BF16_CLASS = 1.5
+# a resumed run against the uninterrupted one: the batches are bitwise
+# equal; cuDNN may pick non-deterministic backward-weight algorithms (the
+# trainer leaves its defaults, for speed), so the gradients may differ in
+# their last bits, and an element whose gradient's sign then differs moves
+# by up to about 2 lr an Adam step: params within 2 x 1e-4 (the peak lr) a
+# step after the resume
+RESUME_BOUND_LRS = 2
 # file:line of each kernel's pallas_call
 REPLACES = {"cac_stats": "codon_tpu/kernels/cac.py:143",
             "spatial_logits": "codon_tpu/kernels/cac.py:193",
@@ -1842,6 +1894,355 @@ def run_cli_tools(data: str, tmp: str, main_out: str, main_summary):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 23-26: training on the card
+# ---------------------------------------------------------------------------
+
+def train_batch(data: str, step: int = 0):
+    """The patch batch `cli train` draws at `step` from the scale dir (b16
+    p64, seed 0, the shipped degradation), on the card."""
+    import torch
+    from codon_tpu_torch.data.io import discover_pairs, imread_gray
+    from codon_tpu_torch.data.pipeline import to_device
+    from codon_tpu_torch.train.data import PatchSampler
+    names = discover_pairs(data)
+    imgs = {sub: [imread_gray(os.path.join(data, sub, n + ".png"))
+                  for n in names]
+            for sub in ("input_label", "input_color", "input_depth")}
+    sampler = PatchSampler(imgs["input_label"], imgs["input_color"],
+                           scale=4, patch=TRAIN_PATCH, batch=TRAIN_BATCH,
+                           degraded=imgs["input_depth"])
+    dev = torch.device(DEVICE)
+    return sampler, {k: to_device(v, dev)
+                     for k, v in sampler.sample_at(step).items()}
+
+
+def train_step_for(dtype: str, cac_impl=None):
+    import dataclasses
+    from codon_tpu_torch.core.params import DTYPE_POLICIES
+    from codon_tpu_torch.models.variants import get_variant
+    from codon_tpu_torch.train.trainer import TrainConfig, make_train_step
+    v = get_variant("codon", DTYPE_POLICIES[dtype])
+    if cac_impl is not None:
+        v = dataclasses.replace(v, cfg=dataclasses.replace(
+            v.cfg, cac_impl=cac_impl))
+    return make_train_step(v, TrainConfig(clip_norm=1.0))
+
+
+def ship4_params():
+    from codon_tpu_torch.checkpoint.native import load_npz, params_from_numpy
+    return params_from_numpy(load_npz(CKPT), DEVICE)
+
+
+def grad_distance(a, b, paths):
+    """-> (the gradient tree's relative L2 distance |a - b| / |b|, the
+    worst leaf's max |a - b| over its max |b|, that leaf), over the leaves
+    the forward reads."""
+    from codon_tpu_torch.train.trainer import UNUSED_HEADS
+    num = den = worst = 0.0
+    worst_path = None
+    for path, x, y in zip(paths, a, b):
+        if path.startswith(UNUSED_HEADS):
+            continue
+        d = (x.float() - y.float())
+        num += float((d * d).sum())
+        den += float((y.float() * y.float()).sum())
+        rel = float(d.abs().max()) / max(float(y.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_path = rel, path
+    return (num / den) ** 0.5, worst, worst_path
+
+
+def compare_train_grads(kc, data: str):
+    """Phase 23: one training step's loss and gradients, the forward's CAC
+    stage through the kernels (CacStageFunction) against the plain stage,
+    fp32 then bf16, b16 p64, x4_ship4's weights -> a row a dtype. bf16 is
+    also measured against the fp32 plain step."""
+    import torch
+    from codon_tpu_torch.train.trainer import UNUSED_HEADS, tree_items
+    params = ship4_params()
+    _, batch = train_batch(data)
+    paths = [p for p, _ in tree_items(params)]
+    rows, ref = [], None
+    for dtype in ("fp32", "bf16"):
+        kstep, _ = train_step_for(dtype)
+        kc.reset_launches()
+        lk, gk = kstep.value_and_grad(params, batch)
+        torch.cuda.synchronize()
+        counts = kc.launches()
+        need(counts == {k: 5 for k in counts},
+             f"{dtype} training step launched {counts}: expected 5 of each "
+             f"CAC kernel in the forward and none in the backward")
+        tstep, _ = train_step_for(dtype, cac_impl="torch")
+        kc.reset_launches()
+        lt, gt = tstep.value_and_grad(params, batch)
+        torch.cuda.synchronize()
+        need(sum(kc.launches().values()) == 0,
+             "the plain-stage step launched a CAC kernel")
+        dead = [p for p, g in zip(paths, gk) if float(g.abs().max()) == 0]
+        need(dead == [p for p in paths if p.startswith(UNUSED_HEADS)],
+             f"{dtype}: leaves without a gradient: {dead}")
+        tree, worst, worst_path = grad_distance(gk, gt, paths)
+        loss_rel = abs(float(lk) - float(lt)) / abs(float(lt))
+        loss_tol, leaf_tol, tree_tol = TRAIN_TOLS[dtype]
+        need(math.isfinite(float(lk)) and loss_rel <= loss_tol,
+             f"{dtype} loss: kernels {float(lk)} vs plain {float(lt)}")
+        need(worst <= leaf_tol and tree <= tree_tol,
+             f"{dtype} gradients: tree {tree:.3e} (> {tree_tol}?), leaf "
+             f"{worst_path} {worst:.3e} of its max |g| (> {leaf_tol}?)")
+        row = {"dtype": dtype, "loss_kernels": float(lk),
+               "loss_plain": float(lt), "loss_rel": loss_rel,
+               "grad_tree_rel": tree, "grad_worst_rel": worst,
+               "grad_worst_leaf": worst_path, "leaves": len(paths),
+               "launches": counts}
+        if ref is None:
+            ref = gt
+        else:
+            # the kernel step no farther from the fp32 gradient than the
+            # plain bf16 step is, within BF16_CLASS
+            row["kernels_vs_fp32"] = grad_distance(gk, ref, paths)[0]
+            row["plain_vs_fp32"] = grad_distance(gt, ref, paths)[0]
+            need(row["kernels_vs_fp32"] <= BF16_CLASS * row["plain_vs_fp32"],
+                 f"bf16 kernel step {row['kernels_vs_fp32']:.3e} from the "
+                 f"fp32 gradient, the plain bf16 step "
+                 f"{row['plain_vs_fp32']:.3e}")
+        rows.append(row)
+    return rows
+
+
+class _Interrupt(Exception):
+    pass
+
+
+def train_cli(kc, argv, stop_after=None, record=None):
+    """One in-process `cli train` on the card with the CAC counters set
+    to 0 just before and read just after -> (stdout, counts, wall s).
+    stop_after: raise out of the run right after that step's checkpoint
+    (an interrupt). record: a list that receives a digest of every batch
+    the run draws."""
+    import contextlib
+    import hashlib
+    import io
+    from codon_tpu_torch import cli
+    from codon_tpu_torch.checkpoint import manager
+    from codon_tpu_torch.train import data as tdata
+    real_save, real_sample = (manager.CheckpointManager.save,
+                              tdata.PrefetchSampler.sample)
+
+    def save(self, step, tree):
+        real_save(self, step, tree)
+        if step == stop_after:
+            raise _Interrupt
+
+    def sample(self):
+        b = real_sample(self)
+        if record is not None:
+            record.append(hashlib.sha256(b"".join(
+                b[k].tobytes() for k in sorted(b))).hexdigest())
+        return b
+
+    manager.CheckpointManager.save = save
+    tdata.PrefetchSampler.sample = sample
+    buf = io.StringIO()
+    kc.reset_launches()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            try:
+                rc = cli.main(["train", "--device", DEVICE, *argv])
+            except _Interrupt:
+                rc = "interrupted"
+    finally:
+        manager.CheckpointManager.save = real_save
+        tdata.PrefetchSampler.sample = real_sample
+    wall = time.time() - t0
+    counts = kc.launches()
+    need(rc in (0, "interrupted"), f"cli train returned {rc}")
+    return buf.getvalue(), counts, wall
+
+
+def need_train_counts(counts, steps, what):
+    need(counts == {k: 5 * steps for k in counts},
+         f"{what}: CAC launches {counts} in {steps} steps; expected "
+         f"{5 * steps} of each (5 stages a forward, none in the backward)")
+
+
+def train_losses(out: str):
+    import re
+    losses = [float(x) for x in re.findall(r"loss ([0-9.eE+-]+)", out)]
+    need(losses and all(math.isfinite(x) for x in losses),
+         f"cli train logged no finite loss: {out[-500:]}")
+    return losses
+
+
+def run_train_path(kc, kq, data: str, tmp: str):
+    """Phase 24: `cli train` on the card, b16 p64 bf16 from x4_ship4: 30
+    steps with warmup, clip and EMA, checkpoints every 10; the same run
+    interrupted after step 10 and resumed; --qat-static from
+    x4_ship4_qat_static.npz, scored by `cli eval --dtype int8`; and a run
+    on synthesized degradation (no input_depth/)."""
+    import shutil
+    import numpy as np
+    from codon_tpu_torch.checkpoint.native import load_npz
+    from codon_tpu_torch.train.trainer import tree_items
+    steps = TRAIN_STEPS
+    common = ["--data-dir", data, "--ckpt-in", CKPT, "--steps", str(steps),
+              "--batch", str(TRAIN_BATCH), "--patch", str(TRAIN_PATCH),
+              "--warmup", "5", "--clip-norm", "1", "--ema", "0.999",
+              "--save-every", "10", "--log-every", "10"]
+    res = {}
+    full, ck_a = [], os.path.join(tmp, "train_a.npz")
+    out, counts, wall = train_cli(kc, [*common, "--orbax-dir",
+                                       os.path.join(tmp, "orbax_a"),
+                                       "--ckpt-out", ck_a], record=full)
+    need_train_counts(counts, steps, "cli train")
+    need(len(full) == steps, f"{len(full)} batches drawn in {steps} steps")
+    res["train"] = {"losses": train_losses(out), "counts": counts,
+                    "wall_s": wall}
+    # interrupted after the step-10 checkpoint, then resumed to the end
+    ck_b, odir_b = os.path.join(tmp, "train_b.npz"), os.path.join(
+        tmp, "orbax_b")
+    _, c1, _ = train_cli(kc, [*common, "--orbax-dir", odir_b, "--ckpt-out",
+                              ck_b], stop_after=10)
+    need_train_counts(c1, 10, "cli train up to the interrupt")
+    resumed = []
+    out_r, c2, _ = train_cli(kc, [*common, "--orbax-dir", odir_b,
+                                  "--ckpt-out", ck_b], record=resumed)
+    need("resumed step 10" in out_r, "the second run did not resume")
+    need_train_counts(c2, steps - 10, "the resumed cli train")
+    need(resumed == full[10:], "the resumed run drew other batches than "
+         "the uninterrupted one")
+    a, b = load_npz(ck_a), load_npz(ck_b)
+    diff = max(float(np.abs(np.asarray(x) - np.asarray(y)).max())
+               for (_, x), (_, y) in zip(tree_items(a), tree_items(b)))
+    bound = RESUME_BOUND_LRS * 1e-4 * (steps - 10)
+    need(diff <= bound, f"resumed params differ by {diff} > {bound}")
+    res["resume"] = {"max_abs_diff": diff, "bound": bound,
+                     "batches_bitwise": True}
+    # --qat-static, then the int8 eval of what it wrote
+    ck_q = os.path.join(tmp, "train_q.npz")
+    out_q, cq, wall_q = train_cli(kc, [
+        "--data-dir", data, "--ckpt-in", CKPT_INT8, "--qat-static",
+        "--batch", str(TRAIN_BATCH), "--patch", str(TRAIN_PATCH),
+        "--steps", "10", "--log-every", "5", "--ckpt-out", ck_q])
+    need("QAT-static: calibrated 18 conv sites" in out_q,
+         "--qat-static did not calibrate 18 sites")
+    # the calibration's eval forwards launch the kernels too: 8 frames at
+    # batch 2, 5 stages each
+    cal = 5 * -(-len(SCENES) // 2)
+    need(cq == {k: 5 * 10 + cal for k in cq},
+         f"cli train --qat-static: CAC launches {cq}; expected "
+         f"{5 * 10 + cal} of each (10 steps and {cal // 5} calibration "
+         f"batches)")
+    need(len(load_npz(ck_q).get("act_scales", {})) == 18,
+         "--qat-static wrote no act_scales")
+    kq.reset_launches()
+    i8, _ = eval_once(data, os.path.join(tmp, "out_q"),
+                      os.path.join(tmp, "eval_q.json"), 4, ckpt=ck_q,
+                      dtype="int8")
+    need(all(math.isfinite(i8[k]) for k in ("mean_rmse", "mean_ssim")),
+         "the int8 eval of the QAT output is not finite")
+    need(kq.launches()["quant_im2col"] > 0, "the int8 eval ran no quant "
+         "kernel")
+    res["qat_static"] = {"losses": train_losses(out_q), "counts": cq,
+                         "wall_s": wall_q, "int8_rmse": i8["mean_rmse"],
+                         "int8_ssim": i8["mean_ssim"]}
+    # synthesized degradation: the scale dir without input_depth/
+    syn = os.path.join(tmp, "CODON_X4_syn")
+    for sub in ("input_color", "input_label"):
+        shutil.copytree(os.path.join(data, sub), os.path.join(syn, sub))
+    out_s, cs, wall_s = train_cli(kc, [
+        "--data-dir", syn, "--ckpt-in", CKPT, "--steps", "5",
+        "--batch", str(TRAIN_BATCH), "--patch", str(TRAIN_PATCH),
+        "--log-every", "1", "--ckpt-out", os.path.join(tmp, "train_s.npz")])
+    need("[synthesized degradation]" in out_s, "the run did not synthesize")
+    need_train_counts(cs, 5, "cli train on synthesized degradation")
+    res["synthesized"] = {"losses": train_losses(out_s), "wall_s": wall_s}
+    return res
+
+
+def time_training(kc, data: str):
+    """Phases 25-26: a step's time at b16 p64 in bf16 and fp32 (CUDA
+    events over back-to-back steps on one batch on the card), split into
+    forward, backward and optimizer; the host sampler's ms a batch; and
+    the device's idle share over 10 steps of the loop `cli train` runs
+    (prefetch thread, pinned copy, step) from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from codon_tpu_torch.core.params import full_fp32
+    from codon_tpu_torch.data.pipeline import to_device
+    from codon_tpu_torch.train.trainer import tree_items, tree_rebuild
+    sampler, batch = train_batch(data)
+    res = {}
+    for dtype in ("bf16", "fp32"):
+        params = ship4_params()
+        step, opt = train_step_for(dtype)
+        state = opt.init(params)
+        for _ in range(3):
+            params, state, m = step(params, state, batch)
+        step_ms = time_ms(lambda: step(params, state, batch), warmup=0,
+                          iters=TIME_ITERS)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        split = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+        for _ in range(TIME_ITERS):
+            leaves = [t.detach().requires_grad_(True)
+                      for _, t in tree_items(params)]
+            ev[0].record()
+            with torch.enable_grad(), full_fp32():
+                loss = step.loss(tree_rebuild(params, leaves), batch)
+                ev[1].record()
+                grads = torch.autograd.grad(loss, leaves,
+                                            allow_unused=True)
+            ev[2].record()
+            grads = [torch.zeros_like(t) if g is None else g
+                     for t, g in zip(leaves, grads)]
+            state = opt.update(grads, state, params)
+            ev[3].record()
+            torch.cuda.synchronize()
+            for k, (a, b) in zip(split, zip(ev, ev[1:])):
+                split[k] += a.elapsed_time(b) / TIME_ITERS
+        res[dtype] = {"step_ms": step_ms,
+                      "patches_per_s": TRAIN_BATCH * 1e3 / step_ms,
+                      "split_ms": split}
+    t0 = time.perf_counter()
+    for i in range(TIME_ITERS):
+        sampler.sample_at(100 + i)
+    res["sampler_ms"] = (time.perf_counter() - t0) * 1e3 / TIME_ITERS
+    # the loop of cli train, bf16, profiled
+    params = ship4_params()
+    step, opt = train_step_for("bf16")
+    state = opt.init(params)
+    pf = sampler.prefetch(2, 0)
+    try:
+        dev = torch.device(DEVICE)
+        for _ in range(3):
+            b = {k: to_device(v, dev) for k, v in pf.sample().items()}
+            params, state, m = step(params, state, b)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(TIME_ITERS):
+                b = {k: to_device(v, dev) for k, v in pf.sample().items()}
+                params, state, m = step(params, state, b)
+            float(m["loss"])
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        pf.close()
+    busy = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t and e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += t / 1e3
+    need(busy > 0, "the profiler saw no device time in the training loop")
+    res["loop"] = {"steps": TIME_ITERS, "wall_ms_a_step": wall_ms /
+                   TIME_ITERS, "device_ms_a_step": busy / TIME_ITERS,
+                   "idle_share": max(0.0, 1.0 - busy / wall_ms)}
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -2185,7 +2586,60 @@ def main() -> int:
         say(f"cli info: {' | '.join(tools['info'])}")
         say(f"cli phases: {time.time() - t0:.1f} s")
 
-    # 23. results
+        # 23. training gradients on the card: kernels against plain stage
+        t0 = time.time()
+        for r in compare_train_grads(kc, data):
+            say(f"train grads {r['dtype']} b{TRAIN_BATCH} p{TRAIN_PATCH}: "
+                f"loss kernels {r['loss_kernels']:.6f} plain "
+                f"{r['loss_plain']:.6f} (rel {r['loss_rel']:.2e}); "
+                f"gradient tree rel L2 {r['grad_tree_rel']:.2e}, worst leaf "
+                f"{r['grad_worst_leaf']} {r['grad_worst_rel']:.2e} of its "
+                f"max |g| (tolerances {TRAIN_TOLS[r['dtype']]})"
+                + (f"; from the fp32 gradient: kernels "
+                   f"{r['kernels_vs_fp32']:.3e}, plain "
+                   f"{r['plain_vs_fp32']:.3e}" if "plain_vs_fp32" in r
+                   else "")
+                + f"; every leaf but the dead heads has a gradient; CAC "
+                  f"launches a step {r['launches']}, none in the backward")
+
+        # 24. cli train: the training path
+        tr = run_train_path(kc, kq, data, tmp)
+        train_counts = tr["train"]["counts"]
+        say(f"train path: cli train bf16 b{TRAIN_BATCH} p{TRAIN_PATCH} "
+            f"{TRAIN_STEPS} steps from x4_ship4 (warmup 5, clip 1, ema "
+            f"0.999, checkpoints every 10), losses {tr['train']['losses']}, "
+            f"{tr['train']['wall_s']:.1f} s wall; launches {train_counts}")
+        say(f"train resume: interrupted after step 10, resumed to "
+            f"{TRAIN_STEPS}: batches bitwise, params max |d| "
+            f"{tr['resume']['max_abs_diff']:.3e} (<= "
+            f"{tr['resume']['bound']:.1e})")
+        q = tr["qat_static"]
+        say(f"train --qat-static from x4_ship4_qat_static, 10 steps: "
+            f"losses {q['losses']}, {q['wall_s']:.1f} s wall, launches "
+            f"{q['counts']}; cli eval --dtype int8 of its output: mean RMSE "
+            f"{q['int8_rmse']}, mean SSIM {q['int8_ssim']}")
+        say(f"train on synthesized degradation, 5 steps: losses "
+            f"{tr['synthesized']['losses']}")
+
+        # 25-26. training times and the device's idle share
+        tt = time_training(kc, data)
+        for dtype in ("bf16", "fp32"):
+            r = tt[dtype]
+            say(f"train time {dtype} b{TRAIN_BATCH} p{TRAIN_PATCH}: "
+                f"{r['step_ms']:.3f} ms a step, {r['patches_per_s']:.0f} "
+                f"patches/s; forward {r['split_ms']['forward']:.3f}, "
+                f"backward {r['split_ms']['backward']:.3f}, optimizer "
+                f"{r['split_ms']['optimizer']:.3f} ms ({card})")
+        say(f"train sampler (host): {tt['sampler_ms']:.3f} ms a batch of "
+            f"{TRAIN_BATCH} patches")
+        lp = tt["loop"]
+        say(f"train loop bf16, {lp['steps']} steps profiled: "
+            f"{lp['wall_ms_a_step']:.3f} ms a step wall, "
+            f"{lp['device_ms_a_step']:.3f} ms device, idle share "
+            f"{lp['idle_share']:.1%} ({card})")
+        say(f"train phases: {time.time() - t0:.1f} s")
+
+    # 27. results
     int8_paths = {"eval_int8": i8_counts,
                   "eval_int8_tta8_device_metrics": i8t_counts,
                   "eval_int8_ensemble2_tta": i8e_counts,
@@ -2201,8 +2655,10 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "codon_tpu_torch/kernels/csrc/cac.cu",
-            "replaces": REPLACES[name], "launches": counts[name],
-            "launches_by_path": {"eval": counts[name],
+            "replaces": REPLACES[name], "launches": train_counts[name],
+            "launches_by_path": {"train": train_counts[name],
+                                 "train_qat_static": q["counts"][name],
+                                 "eval": counts[name],
                                  "eval_tta8_device_metrics": tta_counts[name],
                                  "eval_ensemble2_tta": ens_counts[name],
                                  **{p: c[name] for p, c in

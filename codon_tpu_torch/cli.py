@@ -10,6 +10,10 @@ eval     run a model over a scale directory, write PNGs, report RMSE /
          quantized convs (static per-channel scales where the checkpoint
          carries act_scales/*, else dynamic per-sample ones); --resume,
          --profile DIR, --check-nans
+train    train a model on patches of a scale dir (shipped input_depth/ or
+         synthesized bicubic degradation): Adam(W) with warmup + cosine,
+         clip-norm, l1 / l2 and --grad-loss, --qat / --qat-static,
+         --ema, step checkpoints with resume (--orbax-dir)
 golden   score a scale dir's archived output/ PNGs against input_label/
 convert  the reference's torch .pth -> native .npz checkpoint
 info     the device, a variant's parameter count, the variant registry
@@ -22,11 +26,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import sys
 import time
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 
@@ -90,6 +96,86 @@ def _build_argparser() -> argparse.ArgumentParser:
                         "that names the site (syncs the card at every "
                         "conv)")
     e.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the plain PyTorch path")
+
+    t = sub.add_parser("train", help="train a model on patches")
+    t.add_argument("--scale", type=int, choices=(4, 8, 16), default=4)
+    t.add_argument("--data-root", default=".",
+                   help="directory containing CODON_X{scale}/")
+    t.add_argument("--data-dir", default=None,
+                   help="explicit scale dir (overrides --data-root)")
+    t.add_argument("--variant", default="codon")
+    t.add_argument("--steps", type=int, default=2000)
+    t.add_argument("--patch", type=int, default=64)
+    t.add_argument("--batch", type=int, default=16)
+    t.add_argument("--lr", type=float, default=1e-4)
+    t.add_argument("--warmup", type=int, default=0,
+                   help=">0: warmup+cosine schedule over --steps")
+    t.add_argument("--loss", choices=("l1", "l2"), default="l1")
+    t.add_argument("--grad-loss", type=float, default=0.0,
+                   help=">0: add this weight of masked gradient-domain L1 "
+                        "(edge supervision) to the pixel loss")
+    t.add_argument("--weight-decay", type=float, default=0.0,
+                   help="decoupled weight decay (AdamW)")
+    t.add_argument("--clip-norm", type=float, default=0.0,
+                   help=">0: clip the global gradient norm before the "
+                        "optimizer update (optax's clip_by_global_norm)")
+    t.add_argument("--dtype", choices=("bf16", "fp32", "fp16"),
+                   default="bf16")
+    t.add_argument("--seed", type=int, default=0,
+                   help="seeds the patch stream and a random init")
+    t.add_argument("--ckpt-in", default=None, help="warm start from .npz")
+    t.add_argument("--ckpt-out", default="codon_trained.npz")
+    t.add_argument("--log-every", type=int, default=100)
+    t.add_argument("--check-nans", action="store_true",
+                   help="fail fast on NaN: check every conv site's output, "
+                        "and the loss and every gradient each step, "
+                        "raising FloatingPointError (syncs the card)")
+    t.add_argument("--exclude", default="",
+                   help="comma-separated image names to hold out")
+    t.add_argument("--mix-scales", action="store_true",
+                   help="also train on the shipped degradations of the "
+                        "same scenes from the other scale dirs under "
+                        "--data-root")
+    t.add_argument("--edge-bias", type=float, default=0.0,
+                   help="probability in (0,1] that a patch is centred, "
+                        "with jitter, on a depth-discontinuity pixel")
+    t.add_argument("--scene-weight", default=None,
+                   help="comma list Name=W of per-scene sampling weights "
+                        "(unlisted scenes weigh 1.0)")
+    t.add_argument("--collage", type=float, default=0.0,
+                   help="probability in [0,1] that a patch gets a "
+                        "depth-collage paste from another scene")
+    t.add_argument("--scale-cond", action="store_true",
+                   help="append a constant scale/16 channel to the depth "
+                        "input (with --variant codon_sc)")
+    t.add_argument("--augment", choices=("full", "flips", "none"),
+                   default="full",
+                   help="full = flips+rot90+photometric guidance jitter+"
+                        "depth affine; flips = geometric only")
+    t.add_argument("--orbax-dir", default=None,
+                   help="step checkpoints of {params, opt_state, step} "
+                        "every --save-every steps into this directory "
+                        "(async, atomic, keep-last-3), resuming from its "
+                        "latest step if it has one. The name is the JAX "
+                        "package's; the format is this port's own "
+                        "(step_<n>/tree.npz), and the two packages do not "
+                        "read each other's step directories")
+    t.add_argument("--save-every", type=int, default=500)
+    t.add_argument("--no-handoff", action="store_true",
+                   help="with --qat-static: drop the handoff grids "
+                        "(roundtrip sites) from the calibration")
+    t.add_argument("--qat-static", action="store_true",
+                   help="QAT on frozen per-channel static activation "
+                        "scales calibrated on full frames first; the "
+                        "scales are saved with the weights (eval --dtype "
+                        "int8 then runs the static path)")
+    t.add_argument("--qat", action="store_true",
+                   help="quantization-aware fine-tuning on dynamic scales")
+    t.add_argument("--ema", type=float, default=0.0, metavar="DECAY",
+                   help="keep an EMA of the weights and save it beside "
+                        "--ckpt-out as <out>_ema.npz")
+    t.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
 
     g = sub.add_parser("golden", help="score archived outputs")
@@ -422,6 +508,331 @@ def cmd_eval(args) -> int:
             log_ctx.__exit__(None, None, None)
 
 
+def parse_scene_weights(spec, pair_names):
+    """`--scene-weight "Name=W[,Name=W...]"` -> a weight a pair (1.0 where
+    unnamed), or None for an empty spec; malformed entries, non-finite or
+    negative weights and unknown names exit before training starts."""
+    if not spec:
+        return None
+    wmap = {}
+    for item in spec.split(","):
+        k, sep, v = item.partition("=")
+        if not sep or not k.strip():
+            raise SystemExit(f"--scene-weight expects Name=W[,..], "
+                             f"got {item!r}")
+        try:
+            w = float(v)
+        except ValueError:
+            raise SystemExit(f"--scene-weight: bad weight {v!r} "
+                             f"for {k.strip()!r}") from None
+        if not math.isfinite(w) or w < 0:
+            raise SystemExit(f"--scene-weight: weight for {k.strip()!r} "
+                             f"must be finite and >= 0, got {w}")
+        if k.strip() in wmap:
+            raise SystemExit(f"--scene-weight: {k.strip()!r} appears "
+                             f"twice in the spec")
+        wmap[k.strip()] = w
+    unknown = set(wmap) - set(pair_names)
+    if unknown:
+        raise SystemExit(f"--scene-weight names not in the training "
+                         f"set: {sorted(unknown)}")
+    print(f"scene weights: {wmap} over {len(pair_names)} pairs")
+    return [wmap.get(n, 1.0) for n in pair_names]
+
+
+def _ema_path(ckpt_out: str) -> str:
+    base, ext = os.path.splitext(ckpt_out)
+    return base + "_ema" + (ext or ".npz")
+
+
+def _training_pairs(args, scale_dir):
+    """-> (labels, colors, degraded or None, pair names, pair scales,
+    names): the uint8 images of the training set, as `codon_tpu.cli
+    train` gathers them (--exclude, --mix-scales)."""
+    from codon_tpu_torch.data.io import discover_pairs, imread_gray
+
+    names = discover_pairs(scale_dir)
+    excluded = {n.strip() for n in args.exclude.split(",") if n.strip()}
+    if excluded:
+        missing = excluded - set(names)
+        if missing:
+            raise SystemExit(f"--exclude names not in dataset: {missing}")
+        names = [n for n in names if n not in excluded]
+        print(f"holding out: {sorted(excluded)}")
+    pair_names = list(names)
+    pair_scales = [args.scale] * len(names)
+    labels, colors, degraded = [], [], []
+    for n in names:
+        labels.append(imread_gray(os.path.join(scale_dir, "input_label",
+                                               n + ".png")))
+        colors.append(imread_gray(os.path.join(scale_dir, "input_color",
+                                               n + ".png")))
+        dpath = os.path.join(scale_dir, "input_depth", n + ".png")
+        if os.path.exists(dpath):
+            degraded.append(imread_gray(dpath))
+    use_real = len(degraded) == len(labels)
+    if args.mix_scales:
+        if not use_real:
+            raise SystemExit("--mix-scales needs shipped input_depth for "
+                             "the primary scale")
+        if args.data_dir:
+            raise SystemExit("--mix-scales derives the other-scale dirs "
+                             "from --data-root and cannot be combined "
+                             "with a --data-dir override")
+        added, skipped = 0, 0
+        for s in (4, 8, 16):
+            if s == args.scale:
+                continue
+            sdir = os.path.join(args.data_root, f"CODON_X{s}")
+            for i, n in enumerate(names):
+                dpath = os.path.join(sdir, "input_depth", n + ".png")
+                if os.path.exists(dpath):
+                    deg = imread_gray(dpath)
+                    if deg.shape != labels[i].shape:
+                        skipped += 1
+                        continue
+                    labels.append(labels[i])
+                    colors.append(colors[i])
+                    degraded.append(deg)
+                    pair_names.append(n)
+                    pair_scales.append(s)
+                    added += 1
+        print(f"mix-scales: +{added} shipped degradation pairs from the "
+              f"other scale dirs"
+              + (f" ({skipped} skipped: shape mismatch vs primary label)"
+                 if skipped else ""))
+    return (labels, colors, degraded if use_real else None, pair_names,
+            pair_scales, names)
+
+
+def _calibrate(args, variant, params, scale_dir, names, labels, colors,
+               use_real, device):
+    """--qat-static: per-site static scales from full-frame eval forwards
+    (the packed, unrolled forward: calibration sees whole images, not
+    patches)."""
+    from codon_tpu_torch.data.pipeline import batched_loader, to_device
+    from codon_tpu_torch.quant_ops import calibrate_act_scales
+    from codon_tpu_torch.train.data import synthesize_lr
+
+    if use_real:
+        def cal_batches():
+            for b in batched_loader(scale_dir, names, 2, 32, device=device):
+                yield b.depth, b.color, b.mask
+    else:
+        def cal_batches():
+            for lab, col in zip(labels, colors):
+                d = synthesize_lr(lab, args.scale)
+                yield (to_device(d.astype(np.float32)[None, ..., None]
+                                 / 255.0, device),
+                       to_device(col.astype(np.float32)[None, ..., None]
+                                 / 255.0, device), None)
+
+    act_scales = calibrate_act_scales(
+        lambda p, d, c, ops, mask: variant.forward(p, d, c, ops=ops,
+                                                   mask=mask),
+        params, cal_batches())
+    if args.no_handoff:
+        from codon_tpu_torch.quant_ops import HANDOFF_SITES
+        act_scales = {k: v for k, v in act_scales.items()
+                      if k not in HANDOFF_SITES}
+        print("no-handoff: dropped the roundtrip grids "
+              f"({len(act_scales)} conv sites kept)")
+    print(f"QAT-static: calibrated {len(act_scales)} conv sites on "
+          f"{len(names)} full frames; training on the frozen grid")
+    return act_scales
+
+
+def _resume(mgr, params, opt_state, orbax_dir):
+    """Load the manager's latest step into `params` and `opt_state` (in
+    place) -> the step, or 0 when the directory has none."""
+    from codon_tpu_torch.train.trainer import tree_items
+
+    latest = mgr.latest_step()
+    if latest is None:
+        return 0
+    tree = mgr.restore(latest)
+    live = {"params": params, "mu": opt_state["mu"], "nu": opt_state["nu"]}
+    saved = {"params": tree.get("params", {}),
+             "mu": tree.get("opt_state", {}).get("mu", {}),
+             "nu": tree.get("opt_state", {}).get("nu", {})}
+    for part, dst in live.items():
+        want = [(k, tuple(v.shape)) for k, v in tree_items(dst)]
+        got = [(k, tuple(v.shape)) for k, v in tree_items(saved[part])]
+        if want != got:
+            raise SystemExit(
+                f"--orbax-dir: cannot restore step {latest} from "
+                f"{orbax_dir}: its {part} tree differs from this run's "
+                f"(variant, flags or optimizer). Resume with the flags "
+                f"that wrote it, or start a fresh --orbax-dir (warm-start "
+                f"weights via --ckpt-in instead).")
+        with torch.no_grad():
+            for (_, d), (_, s) in zip(tree_items(dst),
+                                      tree_items(saved[part])):
+                d.copy_(torch.from_numpy(np.asarray(s)))
+    opt_state["count"] = int(tree["opt_state"]["count"])
+    return int(tree["step"])
+
+
+def cmd_train(args) -> int:
+    from codon_tpu_torch.checkpoint.manager import CheckpointManager
+    from codon_tpu_torch.checkpoint.native import (load_npz,
+                                                   params_from_numpy,
+                                                   save_npz)
+    from codon_tpu_torch.core.ops import NanCheckOps, TorchOps
+    from codon_tpu_torch.core.params import DTYPE_POLICIES
+    from codon_tpu_torch.data.pipeline import to_device
+    from codon_tpu_torch.models.codon_net import widen_stem_params
+    from codon_tpu_torch.models.variants import get_variant
+    from codon_tpu_torch.train.data import PatchSampler
+    from codon_tpu_torch.train.trainer import (CollapseDetector, TrainConfig,
+                                               ema_update, make_train_step,
+                                               tree_items, tree_rebuild)
+
+    device = _device(args.device)
+    variant = get_variant(args.variant, dtypes=DTYPE_POLICIES[args.dtype])
+    variant.check_trainable()
+    if args.qat_static and args.qat:
+        raise SystemExit("--qat-static and --qat are mutually exclusive "
+                         "(frozen static grid vs dynamic scales); pick one")
+    scale_dir = _scale_dir(args)
+    (labels, colors, degraded, pair_names, pair_scales,
+     names) = _training_pairs(args, scale_dir)
+    use_real = degraded is not None
+    print(f"train x{args.scale}: {len(labels)} source images, "
+          f"patch={args.patch} batch={args.batch} steps={args.steps} "
+          f"[{'shipped input_depth' if use_real else 'synthesized'} "
+          f"degradation] on {device}")
+
+    if args.ckpt_in:
+        tree = load_npz(args.ckpt_in)
+        if variant.cfg.in_channels == 2 and tree["input"].shape[2] == 1:
+            tree = widen_stem_params(tree, variant.cfg.in_channels)
+            print(f"warm start: widened 1-channel stem -> "
+                  f"{tree['input'].shape} with a zero conditioning slice "
+                  f"(function-preserving)")
+        act_scales = tree.pop("act_scales", None)
+        params = params_from_numpy(tree, device,
+                                   variant.cfg.dtypes.param_dtype)
+    else:
+        params = variant.init(torch.Generator().manual_seed(args.seed),
+                              device=device)
+        act_scales = None
+    if act_scales is not None and not args.qat_static:
+        print("WARNING: the input checkpoint carries act_scales (static "
+              "int8 grid) but --qat-static is not set; the output "
+              "checkpoint will NOT carry them and loses the fast "
+              "static-int8 path. Re-run with --qat-static to keep it.")
+    ops = None
+    if args.qat_static:
+        from codon_tpu_torch.quant_ops import FakeQuantStaticOps
+        if not args.ckpt_in:
+            print("WARNING: --qat-static without --ckpt-in calibrates the "
+                  "frozen activation grid from RANDOM-init statistics, "
+                  "which caps int8 quality; warm-start from a trained "
+                  "checkpoint instead.")
+        act_scales = _calibrate(args, variant, params, scale_dir, names,
+                                labels, colors, use_real, device)
+        ops = FakeQuantStaticOps({k: torch.from_numpy(v).to(device)
+                                  for k, v in act_scales.items()})
+    elif args.qat:
+        from codon_tpu_torch.quant_ops import FakeQuantOps
+        ops = FakeQuantOps()
+        print("QAT: fake-quantized convs (int8 grid, dynamic scales)")
+    if args.check_nans:
+        ops = NanCheckOps(TorchOps() if ops is None else ops)
+    step, opt = make_train_step(
+        variant, TrainConfig(learning_rate=args.lr, loss=args.loss,
+                             warmup_steps=args.warmup,
+                             weight_decay=args.weight_decay,
+                             clip_norm=args.clip_norm or None,
+                             grad_weight=args.grad_loss,
+                             total_steps=args.steps),
+        ops=ops, check_finite=args.check_nans)
+    opt_state = opt.init(params)
+
+    sampler_src = PatchSampler(
+        labels, colors, scale=args.scale, patch=args.patch,
+        batch=args.batch, seed=args.seed, augment=args.augment,
+        degraded=degraded, edge_bias=args.edge_bias,
+        scene_weights=parse_scene_weights(args.scene_weight, pair_names),
+        collage=args.collage,
+        cond=([s / 16.0 for s in pair_scales] if args.scale_cond
+              else None))
+
+    mgr = None
+    start_step = 0
+    if args.orbax_dir:
+        mgr = CheckpointManager(args.orbax_dir, max_to_keep=3)
+        start_step = _resume(mgr, params, opt_state, args.orbax_dir)
+        if start_step:
+            print(f"orbax-dir: resumed step {start_step} from "
+                  f"{args.orbax_dir} (the patch stream resumes at the "
+                  f"same step: batches match the uninterrupted run)")
+        else:
+            print(f"orbax-dir: async checkpoints -> {args.orbax_dir} "
+                  f"every {args.save_every} steps (keep-last-3)")
+
+    ema_params = None
+    if args.ema:
+        if not 0.0 < args.ema < 1.0:
+            raise SystemExit(f"--ema must be in (0, 1), got {args.ema}")
+        # starts at the current weights (warm start, init or the resumed
+        # step); the average itself is not checkpointed
+        ema_params = tree_rebuild(params, [t.clone() for _, t in
+                                           tree_items(params)])
+        print(f"ema: decay {args.ema} -> {_ema_path(args.ckpt_out)}")
+
+    # the stream starts at the restored step: batch i is a pure function
+    # of (seed, i), so a resumed run reproduces the uninterrupted one
+    sampler = sampler_src.prefetch(2, start_step)
+    collapse = CollapseDetector()
+    try:
+        t0 = time.time()
+        for i in range(start_step + 1, args.steps + 1):
+            batch = {k: to_device(v, device)
+                     for k, v in sampler.sample().items()}
+            params, opt_state, m = step(params, opt_state, batch)
+            if ema_params is not None:
+                ema_update(ema_params, params, args.ema)
+            if i % args.log_every == 0 or i == 1:
+                loss = float(m["loss"])      # syncs the card
+                gnorm = float(m["grad_norm"])
+                rate = (i - start_step) * args.batch / (time.time() - t0)
+                print(f"step {i:6d}  loss {loss:.5f}  "
+                      f"grad_norm {gnorm:.3f}  {rate:.0f} patches/s")
+                if collapse.update(gnorm):
+                    dead = args.ckpt_out + ".collapsed"
+                    save_npz(dead, params)
+                    raise SystemExit(
+                        f"TRAIN COLLAPSE at step {i}: global grad norm "
+                        f"has been exactly 0.0 for {collapse.patience} "
+                        f"consecutive log intervals — the network is a "
+                        f"dead-ReLU fixed point (output == residual "
+                        f"passthrough) and cannot recover. State saved to "
+                        f"{dead} for inspection. Retry with --clip-norm, a "
+                        f"lower --lr, or a --ckpt-in warm start.")
+            if mgr is not None and (i % args.save_every == 0
+                                    or i == args.steps):
+                mgr.save(i, {"params": params, "opt_state": opt_state,
+                             "step": np.asarray(i, np.int64)})
+    finally:
+        sampler.close()
+        if mgr is not None:
+            mgr.close()
+    if args.qat_static:
+        # the frozen grid ships with the weights: eval --dtype int8 runs
+        # Int8StaticOps on it
+        params = dict(params, act_scales=act_scales)
+        if ema_params is not None:
+            ema_params = dict(ema_params, act_scales=act_scales)
+    save_npz(args.ckpt_out, params)
+    print(f"saved {args.ckpt_out}")
+    if ema_params is not None:
+        save_npz(_ema_path(args.ckpt_out), ema_params)
+        print(f"saved {_ema_path(args.ckpt_out)}")
+    return 0
+
+
 def cmd_golden(args) -> int:
     """Score `<scale dir>/output/*.png` against `input_label/` on the host,
     as `codon_tpu.cli golden` does: a line an image, the count, the means."""
@@ -479,8 +890,8 @@ def cmd_info(args) -> int:
 
 def main(argv=None) -> int:
     args = _build_argparser().parse_args(argv)
-    return {"eval": cmd_eval, "golden": cmd_golden, "convert": cmd_convert,
-            "info": cmd_info}[args.cmd](args)
+    return {"eval": cmd_eval, "train": cmd_train, "golden": cmd_golden,
+            "convert": cmd_convert, "info": cmd_info}[args.cmd](args)
 
 
 if __name__ == "__main__":

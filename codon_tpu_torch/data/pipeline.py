@@ -40,7 +40,9 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device`: through pinned memory, without waiting,
+    for the card."""
     t = torch.from_numpy(a)
     if device.type == "cuda":
         t = t.pin_memory()
@@ -80,11 +82,11 @@ def make_batch(samples: Sequence[Sample], pad_multiple: int = 32,
             label[i, :h, :w, 0] = s.label
     return Batch(
         names=[s.name for s in samples[:real]],
-        depth=_to_device(depth, device), color=_to_device(color, device),
-        mask=None if uniform else _to_device(mask, device),
+        depth=to_device(depth, device), color=to_device(color, device),
+        mask=None if uniform else to_device(mask, device),
         sizes=list(zip(hs, ws)),
         labels=[s.label for s in samples],
-        label_dev=_to_device(label, device) if have_labels else None,
+        label_dev=to_device(label, device) if have_labels else None,
     )
 
 

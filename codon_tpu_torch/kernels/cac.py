@@ -21,6 +21,12 @@ wider NHWC tensor (its "pitch", the elements from one pixel to the next,
 above C): the merged-tower forward hands the kernels the two halves of its
 (N, H, W, 2C) tensor as views, and `cac_apply(..., dst=...)` writes both
 halves of the next one. The plain versions take the same views.
+
+`CacStageFunction` puts the composed stage under autograd for training:
+its forward runs the three kernels, its backward recomputes the stage in
+plain PyTorch from the saved inputs and differentiates that. The JAX
+package has no backward kernel either: it trains through XLA's autodiff
+of the same plain stage.
 """
 from __future__ import annotations
 
@@ -296,3 +302,40 @@ def cac_stage(out, out_c, inputs, inputs_c, w1, b1, w2, b2, sp_w, mask=None,
     gate = torch.sigmoid(mlp(avg) + mlp(ch_max)).contiguous()   # (N,1,C)
     sp = spatial_logits(cmax, cmean, sp_w)
     return cac_apply(out, out_c, inputs, inputs_c, gate, sp, dst)
+
+
+class CacStageFunction(torch.autograd.Function):
+    """`cac_stage` (no `dst`) with a gradient: the training forward's stage.
+
+    forward: the three kernels, exactly as `cac_stage` (their plain
+    versions on CPU tensors); the inputs are saved. backward: the stage
+    recomputed from the saved inputs in the plain PyTorch form the JAX
+    package differentiates (`models.codon_net.cac_stage_torch`, the
+    activation dtype throughout), and `torch.autograd.grad` of it. Its
+    `amax` / `maximum` share the gradient evenly among tied maxima, as
+    `jnp.max` / `jnp.maximum` do. The mask gets no gradient. No kernel
+    runs in the backward.
+
+    apply(out, out_c, inputs, inputs_c, w1, b1, w2, b2, sp_w, mask)
+        -> (new_out, new_out_c)
+    """
+
+    @staticmethod
+    def forward(ctx, out, out_c, inputs, inputs_c, w1, b1, w2, b2, sp_w,
+                mask):
+        ctx.save_for_backward(out, out_c, inputs, inputs_c, w1, b1, w2, b2,
+                              sp_w, mask)
+        return cac_stage(out, out_c, inputs, inputs_c, w1, b1, w2, b2, sp_w,
+                         mask)
+
+    @staticmethod
+    def backward(ctx, g_out, g_out_c):
+        from codon_tpu_torch.models.codon_net import cac_stage_torch
+        *xs, mask = ctx.saved_tensors
+        need = ctx.needs_input_grad[:len(xs)]
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(n) for x, n in zip(xs, need)]
+            new = cac_stage_torch(*xs, mask=mask)
+            grads = iter(torch.autograd.grad(
+                new, [x for x, n in zip(xs, need) if n], (g_out, g_out_c)))
+        return (*(next(grads) if n else None for n in need), None)

@@ -22,7 +22,13 @@ NHWC layout at the public functions, and the same structure:
 The CAC stage runs either through the three CUDA kernels
 (`cac_impl="kernel"`, `kernels/cac.py`) or as plain PyTorch ops mirroring
 the JAX package's XLA stage (`cac_impl="torch"`). The default takes the
-kernels for CUDA tensors and the plain ops for CPU tensors.
+kernels for CUDA tensors and the plain ops for CPU tensors. With autograd
+on, the kernels run through `CacStageFunction`, whose backward
+differentiates the plain stage.
+
+The entry points run under `torch.no_grad()` for eval; training calls
+their grad-enabled siblings `codon_forward_train` and
+`sequential_tower_forward_train`, the same functions with autograd on.
 
 Two more forwards take the same parameter tree: `codon_forward_fused`
 runs both towers in one 2W-channel tensor with grouped convs (variant
@@ -34,13 +40,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from codon_tpu_torch.core.device import resolve_device
 from codon_tpu_torch.core.ops import TorchOps
 from codon_tpu_torch.core.params import (DTypePolicy, FP32, conv_kernel_init,
                                          full_fp32, linear_init)
-from codon_tpu_torch.kernels.cac import cac_stage
+from codon_tpu_torch.kernels.cac import CacStageFunction, cac_stage
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,6 +150,23 @@ def init_codon_params(gen: torch.Generator, cfg: CodonConfig = CodonConfig(),
     return params
 
 
+def widen_stem_params(params, in_channels: int = 2):
+    """A 1-channel parameter tree (numpy) -> the same tree with its `input`
+    stem kernel padded to `in_channels` input channels with zero slices:
+    a scale-conditioned (codon_sc) model warm-started from a 1-channel
+    ancestor computes the ancestor's function for every value of the
+    conditioning plane. As `codon_tpu.models.codon_net.widen_stem_params`;
+    the given tree is not changed."""
+    k = np.asarray(params["input"])
+    if k.shape[2] != 1:
+        raise ValueError(f"widen_stem_params expects a 1-channel stem, "
+                         f"got {k.shape}")
+    out = dict(params)
+    out["input"] = np.concatenate(
+        [k] + [np.zeros_like(k)] * (in_channels - 1), axis=2)
+    return out
+
+
 # --------------------------------------------------------------------------
 # kernel packing (cell_impl="packed")
 # --------------------------------------------------------------------------
@@ -198,6 +222,19 @@ def cac_spatial_gate(fcat, sp_w, ops: TorchOps, mask=None):
     return torch.sigmoid(ops.conv2d(pooled, sp_w, mask=mask))
 
 
+def cac_stage_torch(out, out_c, inputs, inputs_c, w1, b1, w2, b2, sp_w,
+                    mask=None, ops: Optional[TorchOps] = None):
+    """One CAC stage in plain PyTorch, the JAX package's XLA stage:
+    ad = channel gate x spatial gate over Fcat = (color, depth), both
+    towers gated and the long skip added -> (new_out, new_out_c). The
+    2W-channel concat is never built."""
+    ops = TorchOps() if ops is None else ops
+    fcat = (out_c, out)
+    ad = (cac_channel_gate(fcat, w1, b1, w2, b2, ops, mask)
+          * cac_spatial_gate(fcat, sp_w, ops, mask))
+    return out * ad + inputs, out_c * ad + inputs_c
+
+
 # --------------------------------------------------------------------------
 # forward
 # --------------------------------------------------------------------------
@@ -221,6 +258,17 @@ def codon_forward(params, depth, color, *, cfg: CodonConfig = CodonConfig(),
     inference then equals per-image inference. Float32 convs and matmuls run
     in full float32 (TF32 off).
     """
+    with full_fp32():
+        return _forward(params, depth, color, cfg,
+                        TorchOps() if ops is None else ops, mask)
+
+
+def codon_forward_train(params, depth, color, *,
+                        cfg: CodonConfig = CodonConfig(),
+                        ops: Optional[TorchOps] = None, mask=None):
+    """`codon_forward` with autograd on, for training: the CAC kernels run
+    through `CacStageFunction`. TF32 stays off for the forward; the caller
+    keeps it off over the backward too (`full_fp32`)."""
     with full_fp32():
         return _forward(params, depth, color, cfg,
                         TorchOps() if ops is None else ops, mask)
@@ -287,18 +335,13 @@ def _forward(params, depth, color, cfg, ops, mask):
 
         if cac_i is None:
             return out + inputs, out_c + inputs_c
-        if use_kernels:
-            return cac_stage(out, out_c, inputs, inputs_c, cac_i["ch_w1"],
-                             cac_i["ch_b1"], cac_i["ch_w2"], cac_i["ch_b2"],
-                             cac_i["sp_w"], mask)
-        # Fcat = cat(color, depth), kept as a pair: the 2W-channel concat
-        # is never built
-        fcat = (out_c, out)
-        ch = cac_channel_gate(fcat, cac_i["ch_w1"], cac_i["ch_b1"],
-                              cac_i["ch_w2"], cac_i["ch_b2"], ops, mask)
-        sp = cac_spatial_gate(fcat, cac_i["sp_w"], ops, mask)
-        ad = ch * sp
-        return out * ad + inputs, out_c * ad + inputs_c
+        args = (out, out_c, inputs, inputs_c, cac_i["ch_w1"], cac_i["ch_b1"],
+                cac_i["ch_w2"], cac_i["ch_b2"], cac_i["sp_w"])
+        if not use_kernels:
+            return cac_stage_torch(*args, mask=mask, ops=ops)
+        if torch.is_grad_enabled():
+            return CacStageFunction.apply(*args, mask)
+        return cac_stage(*args, mask)
 
     def fuse_stage(out_f, fuse):
         if packed:
@@ -440,6 +483,17 @@ def sequential_tower_forward(params, depth, color, *,
     fusion trunk; no CAC (use_cac is forced off). The residual is the whole
     depth input, as in the JAX package's `sequential_tower_forward`.
     """
+    cfg = dataclasses.replace(cfg, use_cac=False)
+    with full_fp32():
+        return _forward_sequential(params, depth, color, cfg,
+                                   TorchOps() if ops is None else ops, mask)
+
+
+def sequential_tower_forward_train(params, depth, color, *,
+                                   cfg: CodonConfig = CodonConfig(),
+                                   ops: Optional[TorchOps] = None,
+                                   mask=None):
+    """`sequential_tower_forward` with autograd on, for training."""
     cfg = dataclasses.replace(cfg, use_cac=False)
     with full_fp32():
         return _forward_sequential(params, depth, color, cfg,

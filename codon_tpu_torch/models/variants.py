@@ -13,10 +13,14 @@ from typing import Callable, Dict
 import torch
 
 from codon_tpu_torch.core.params import DTypePolicy, FP32
-from codon_tpu_torch.models.codon_net import (CodonConfig, codon_forward,
-                                              codon_forward_fused,
-                                              init_codon_params,
-                                              sequential_tower_forward)
+from codon_tpu_torch.models.codon_net import (
+    CodonConfig, codon_forward, codon_forward_fused, codon_forward_train,
+    init_codon_params, sequential_tower_forward,
+    sequential_tower_forward_train)
+
+# each eval forward's grad-enabled sibling (models.codon_net)
+_TRAIN_FORWARDS = {codon_forward: codon_forward_train,
+                   sequential_tower_forward: sequential_tower_forward_train}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +36,21 @@ class Variant:
     def forward(self, params, depth, color, mask=None, ops=None):
         return self.forward_fn(params, depth, color, cfg=self.cfg, mask=mask,
                                ops=ops)
+
+    def check_trainable(self) -> None:
+        """Raise NotImplementedError unless the variant has a training
+        forward."""
+        if self.forward_fn not in _TRAIN_FORWARDS:
+            raise NotImplementedError(
+                f"variant {self.name!r} does not train yet: its merged-tower "
+                f"stage writes the next tensor through views, an eval-only "
+                f"form (ROADMAP Queue A item 10, codon_fused training)")
+
+    def train_forward(self, params, depth, color, mask=None, ops=None):
+        """The forward with autograd on, for training."""
+        self.check_trainable()
+        return _TRAIN_FORWARDS[self.forward_fn](
+            params, depth, color, cfg=self.cfg, mask=mask, ops=ops)
 
 
 _REGISTRY: Dict[str, tuple] = {}

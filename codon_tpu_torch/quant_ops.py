@@ -1,8 +1,8 @@
-"""Quantized Ops backends for inference: real int8 convs with static
-per-channel or dynamic per-sample activation scales, and the calibration
-backend that records the static scales.
+"""Quantized Ops backends: real int8 convs with static per-channel or
+dynamic per-sample activation scales, the calibration backend that records
+the static scales, and the two fake-quant backends that train for them.
 
-The counterpart of the inference half of `codon_tpu.quant_ops`, with the
+The counterpart of `codon_tpu.quant_ops` but its sharded twins, with the
 same arithmetic op for op, so that the same inputs give the same int8
 codes and, in float32, the same bits:
 
@@ -20,13 +20,21 @@ codes and, in float32, the same bits:
                   are active where the checkpoint calibrated the site.
   CalibrationOps  the float backend that records each site's per-channel
                   absmax; `calibrate_act_scales` turns them into scales.
+  FakeQuantOps    QAT for Int8Ops: a float conv of int8-rounded weights
+                  and activations on the dynamic grids, straight-through
+                  gradients.
+  FakeQuantStaticOps  QAT for Int8StaticOps: activations on the frozen
+                  per-channel grid (the gradient zero where the grid
+                  clips), weights on the folded grid sw_o / s_c, and the
+                  handoff sites `roundtrip` through their grid.
 
 Convs with at most 2 input or output channels (the stems' first layers,
 the head, the CAC spatial gate) stay float in every backend. Every
 quantized conv runs `kernels.quant.int8_conv`: the quantize-gather and the
 dequant epilogue as CUDA kernels on the card, the int8 GEMM in cuBLASLt;
 the handoffs quantize with the same quantize kernel. The folded int8
-weights are made anew at every call, as in JAX. Grouped convs (`groups`,
+weights are made anew at every call, as in JAX. The fake-quant backends
+run float convs (cuDNN through `F.conv2d`) and need no kernel. Grouped convs (`groups`,
 the merged-tower forward's) quantize their whole input on the concatenated
 scale of their compound site ("conv3+conv6") and run group by group.
 """
@@ -278,3 +286,87 @@ def calibrate_act_scales(forward, params, batches):
             acc[k] = v if k not in acc else np.maximum(acc[k], v)
     return {k: (np.maximum(v, 1e-8) / 127.0).astype(np.float32)
             for k, v in acc.items()}
+
+
+# ---------------------------------------------------------------------------
+# fake-quant backends for quantization-aware training
+# ---------------------------------------------------------------------------
+
+def _fq(t, s, clipped_ste=False):
+    """Fake-quantize t on grid s (float32, broadcastable) with
+    straight-through gradients: t + (q - t).detach(), which is q in value
+    and the identity in gradient. The quotient is taken in float32 and
+    rounded half to even, as the int8 convs do.
+
+    clipped_ste: the gradient is zero where the grid clips (|t| > 127 s),
+    and the value there q, as JAX's where(inside, ste, stop_gradient(q)).
+    """
+    q = (torch.clamp(torch.round(t.float() / s), -127, 127) * s).to(t.dtype)
+    ste = t + (q - t).detach()
+    if not clipped_ste:
+        return ste
+    inside = t.float().abs() <= 127.0 * s
+    return torch.where(inside, ste, q.detach())
+
+
+class FakeQuantOps(TorchOps):
+    """QAT backend: a float conv of int8-rounded values, STE gradients.
+
+    Activations on the per-sample dynamic grid (`_x_scale`), weights per
+    output channel (`_w_scales`); the tiny convs stay float.
+    """
+
+    def conv2d(self, x, w, *, mask=None, groups=1, name=None):
+        if _skip_quant(w):
+            return super().conv2d(x, w, mask=mask, groups=groups, name=name)
+        xq = _fq(x, _x_scale(x).float())
+        wq = _fq(w, _w_scales(w)[None, None, None, :].float())
+        return super().conv2d(xq, wq, mask=mask, groups=groups, name=name)
+
+
+class _StaticFakeQuantMixin:
+    """Frozen-grid fake-quant: the roundtrip handoff and a conv site's
+    (x, w) pair."""
+
+    def _scale(self, name, x, groups=1):
+        sc = _site_scale(self.act_scales, name, groups)
+        return None if sc is None else sc.to(x.device)
+
+    def roundtrip(self, x, name=None):
+        """The QAT model of `Int8StaticOps.roundtrip`: fake-quant on the
+        site's frozen grid, the identity where it is not calibrated. Plain
+        STE here, as in JAX (whose clipped form gave NaN gradients there
+        when the handoff fed the CAC max pools)."""
+        sc = self._scale(name, x)
+        if sc is None:
+            return x
+        return _fq(x, sc)
+
+    def _fq_site(self, x, w, sc, groups=1):
+        """(xq, wq) of one conv site: on the frozen grid sc with clipped
+        STE for the activations and the folded grid for the weights, or
+        on the dynamic grids where the site has no scale."""
+        if sc is None:
+            return (_fq(x, _x_scale(x).float()),
+                    _fq(w, _w_scales(w)[None, None, None, :]))
+        sk = _scale_per_kernel_input(sc, groups, w.shape[2], w.shape[3])
+        sw = _w_scales(w.float() * sk)
+        return (_fq(x, sc, clipped_ste=True),
+                _fq(w, sw[None, None, None, :] / sk))
+
+
+class FakeQuantStaticOps(_StaticFakeQuantMixin, TorchOps):
+    """QAT backend for the static grid: `Int8StaticOps` simulated in float.
+
+    act_scales: {site: (C_in,) float32} (arrays or tensors), frozen.
+    """
+
+    def __init__(self, act_scales):
+        self.act_scales = {k: torch.as_tensor(v, dtype=torch.float32)
+                           for k, v in act_scales.items()}
+
+    def conv2d(self, x, w, *, mask=None, groups=1, name=None):
+        if _skip_quant(w):
+            return super().conv2d(x, w, mask=mask, groups=groups, name=name)
+        xq, wq = self._fq_site(x, w, self._scale(name, x, groups), groups)
+        return super().conv2d(xq, wq, mask=mask, groups=groups, name=name)

@@ -843,3 +843,105 @@ def test_cuda_other_int8_forwards_kernels_match_plain(variant, ckpt):
                       "dequant_epilogue": 2 * grouped + plain_convs,
                       "int8_gemm": 2 * grouped + plain_convs}
     assert bool(torch.isfinite(k).all()) and torch.equal(k, p)
+
+
+# ---------------------------------------------------------------------------
+# CacStageFunction: the kernels under autograd (the training forward)
+# ---------------------------------------------------------------------------
+
+# the stage's output, kernels against the plain stage: float32 as the
+# kernels' own tolerance; bfloat16 a few ulps more than one kernel's, since
+# the plain stage pools, runs the MLP and the gates in bfloat16 where the
+# kernels keep float32 and round the gate product once
+STAGE_TOLS = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2 ** -4, 2 ** -5)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape,valid,corner", [
+    ((N, H, W, C), [(H, W), (19, 15)], "top_left"),
+    ((16, 384, 480, C), [(370, 463), (375, 450)] * 8, "bottom_right"),
+], ids=["odd", "tta8"])
+@needs_cuda
+def test_cuda_cac_stage_function(dtype, shape, valid, corner, monkeypatch):
+    """Forward: the three kernels, one launch each, against the plain
+    stage. Backward: no launch, and with cuDNN deterministic the gradients
+    of autograd of the plain stage at the same inputs, bitwise."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    towers, m, _, _, _ = _placed_inputs(shape, valid, corner, dtype, seed=80)
+    ws = [to_torch(w, "cuda") for w in cac_weights(81)]
+    leaves = [t.requires_grad_() for t in towers + ws]
+    tcac.reset_launches()
+    got = tcac.CacStageFunction.apply(*leaves, m)
+    assert tcac.launches() == {"cac_stats": 1, "spatial_logits": 1,
+                               "cac_apply": 1}
+    want = tnet.cac_stage_torch(*leaves, mask=m)
+    atol, rtol = STAGE_TOLS[dtype]
+    for g, w in zip(got, want):
+        _close(g, w, atol, rtol)
+    g = torch.Generator(device="cuda").manual_seed(82)
+    cot = [torch.randn(t.shape, generator=g, device="cuda").to(dtype)
+           for t in got]
+    ga = torch.autograd.grad(got, leaves, cot)
+    assert sum(tcac.launches().values()) == 3
+    gb = torch.autograd.grad(want, leaves, cot)
+    for a, b in zip(ga, gb):
+        assert torch.equal(a, b)
+
+
+def _grad_distance(a, b):
+    """(tree relative L2 of a - b, the worst leaf's max |a - b| over its
+    max |b|) over the leaves with a gradient."""
+    num = den = worst = 0.0
+    for x, y in zip(a, b):
+        scale = float(y.abs().max())
+        if scale == 0:
+            continue
+        d = (x - y).float()
+        num += float((d * d).sum())
+        den += float((y.float() ** 2).sum())
+        worst = max(worst, float(d.abs().max()) / scale)
+    return (num / den) ** 0.5, worst
+
+
+@needs_cuda
+def test_cuda_train_step_launches_and_gradients():
+    """One training step of full-width codon on the card: 5 launches of
+    each CAC kernel in the forward and none in the backward; loss and
+    gradients against the same step with the plain stage, at chip_smoke.py's
+    TRAIN_TOLS: fp32 loss rtol 1e-5, tree 1e-3, leaf 1e-2; bf16 loss 1e-2,
+    tree 0.1, leaf 0.25, and no more than 1.5x farther from the fp32
+    gradient than the plain bf16 step."""
+    from codon_tpu_torch.checkpoint.native import load_npz, params_from_numpy
+    from codon_tpu_torch.core.params import DTYPE_POLICIES
+    from codon_tpu_torch.models.variants import get_variant
+    from codon_tpu_torch.train.trainer import TrainConfig, make_train_step
+
+    params = params_from_numpy(
+        load_npz(os.path.join(CKPT_DIR, "x4_ship4.npz")), "cuda")
+    rng = np.random.RandomState(90)
+    batch = {k: to_torch(rng.rand(2, 32, 32, 1).astype(np.float32), "cuda")
+             for k in ("depth", "color", "label")}
+    batch["mask"] = torch.ones_like(batch["depth"])
+    res = {}
+    for dtype in ("fp32", "bf16"):
+        for impl in ("kernel", "torch"):
+            v = get_variant("codon", DTYPE_POLICIES[dtype])
+            v = dataclasses.replace(v, cfg=dataclasses.replace(
+                v.cfg, cac_impl=impl))
+            step, _ = make_train_step(v, TrainConfig())
+            tcac.reset_launches()
+            res[dtype, impl] = step.value_and_grad(params, batch)
+            want = 5 if impl == "kernel" else 0
+            assert tcac.launches() == {"cac_stats": want,
+                                       "spatial_logits": want,
+                                       "cac_apply": want}
+    for dtype, (loss_tol, leaf_tol, tree_tol) in (
+            ("fp32", (1e-5, 1e-2, 1e-3)), ("bf16", (1e-2, 0.25, 0.1))):
+        (lk, gk), (lt, gt) = res[dtype, "kernel"], res[dtype, "torch"]
+        assert abs(float(lk) - float(lt)) <= loss_tol * abs(float(lt))
+        tree, worst = _grad_distance(gk, gt)
+        assert tree <= tree_tol and worst <= leaf_tol, (dtype, tree, worst)
+    ref = res["fp32", "torch"][1]
+    assert (_grad_distance(res["bf16", "kernel"][1], ref)[0]
+            <= 1.5 * _grad_distance(res["bf16", "torch"][1], ref)[0])
