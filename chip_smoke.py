@@ -106,13 +106,32 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
      RESUME_BOUND_LRS x lr a step; runs `--qat-static` from
      x4_ship4_qat_static and scores its output with `cli eval --dtype
      int8`; and runs 5 steps on the scale dir without input_depth/
-     (synthesized degradation);
+     (synthesized degradation); then one batch-1 bf16 step of `codon`
+     (the CAC kernels, 5 launches each);
  25. times a training step at b16 p64 in bf16 and fp32 (CUDA events), split
      into forward, backward and optimizer, and the host sampler's ms a
      batch;
  26. profiles 10 steps of the loop `cli train` runs (prefetch thread,
      pinned copy, step) with torch.profiler: the device's idle share;
- 27. prints the card's line again, the kernels' JSON line (eight kernels),
+ 27. runs each of the 27 nets of the ablation zoo (`zoo:<name>`, its own
+     init from a seed) at the zoo's cell shape (batch 4: two scenes of 463
+     x 370 and two of 450 x 375 padded to 480 x 384, masked) in fp32 and
+     bf16: finite, bf16 within ZOO_BF16_REL of fp32, no kernel launched;
+     for the nets with a global reduction over pixels, each image of the
+     masked batch against the image alone; the device ms of a forward in
+     each dtype;
+ 28. holds the zoo's CODONNet entry on x4_ship4 (through the reference's
+     state dict and generic_state_dict_to_flat) against `codon` with the
+     CAC kernels, fp32 and bf16, with the CAC counts (none on the zoo path);
+ 29. runs `cli eval --variant zoo:<net> --tta8 --device-metrics` (bf16)
+     for three nets, with the counts;
+ 30. for the two zoo nets with narrow int8 sites, the fp32 int8 forward
+     through the quant kernels against their plain versions (bitwise), and
+     `cli eval --dtype int8` with the quant kernels' counts against the
+     launches each conv call should make, the padded narrow sites included;
+ 31. runs `cli train --variant zoo:<net>` (bf16, b16 p64) for two nets:
+     falling losses, the unread leaves moved by the weight decay alone;
+ 32. prints the card's line again, the kernels' JSON line (eight kernels),
      then the contract line {"ok": true, "device": {...}} as the last line
      of its output.
 
@@ -284,6 +303,43 @@ BF16_CLASS = 1.5
 # by up to about 2 lr an Adam step: params within 2 x 1e-4 (the peak lr) a
 # step after the resume
 RESUME_BOUND_LRS = 2
+# the ablation zoo (phases 27-31): its cell batch (the scale dir's second
+# batch: two scene sizes padded to 480 x 384, masked), its nets' own init
+# from ZOO_SEED
+ZOO_SIZES = [(370, 463), (375, 450)]
+ZOO_SEED = 0
+# the nets whose forward reduces over pixels (masked channel pools, CGNL's
+# dot and GroupNorm, CALayer, CBAM, the depth-only gates): each image of
+# the masked batch against the image alone, fp32, max |d| within the
+# parity tolerance atol + rtol x the image's max |y|: cuDNN sums the
+# padded shape in another order, and random-init outputs are small
+# differences of large activations
+ZOO_GLOBAL = ("basenet_nlar", "basenet_non", "basenet_non2", "basenet_non3",
+              "basenet_non_corr", "basenet_non_cat", "rmcr_fuse_rmcr_rcan",
+              "rmcr_fuse_rmcr_eccv", "rmcr_fuse_rmcr_cross2")
+ZOO_IMAGE_TOL = (5e-4, 1e-3)
+# bf16 forward against fp32 at random init: the mean |d| over valid pixels
+# within 25% of the fp32 output's mean |y|. Random-init outputs are small
+# differences of large activations (the MC nets' reach ~500), so bf16's
+# rounding is amplified by a net-dependent amount: at 4 x 64 x 64 masked
+# on the CPU the JAX package's jitted bf16 zoo forwards read up to 2.8% of
+# it and the port's (each op rounded to bf16) up to 3.5%; on the card at
+# the cell shape the two-mask CAC net (..._advise1_parall) read 9.0%
+ZOO_BF16_REL = 0.25
+# the zoo's CODONNet entry against codon on x4_ship4: fp32 FWD_TOL; bf16
+# the port's bf16 forward tolerance (tests/test_torch_model.py, atol 0.05
+# of a [0, 1] depth map)
+ZOO_CODON = "rmcr_fuse_rmcr_cross_only_corss_advise1"
+ZOO_CODON_BF16_ATOL = 0.05
+ZOO_EVAL_NETS = ("basenet_nlar", "rmcr_fuse_rmcr_eccv", "rmcr_fuse_rmcr_rcan")
+ZOO_INT8_NETS = ("basenet_nlar", "rmcr_fuse_rmcr_rcan")
+ZOO_TRAIN_NETS = ("rmcr_fuse_rmcr_rcan", "basenet_nlar")
+# zoo training: the mean loss of the last half of the steps must lie below
+# the first half's. Not the first step's: basenet_nlar's CGNL heads start
+# with a zero `z`, so their GroupNorm passes nothing at step 1 and unit
+# variance from step 2, and its loss rises before it falls
+ZOO_TRAIN_STEPS = 12
+ZOO_WEIGHT_DECAY = 0.01
 # file:line of each kernel's pallas_call
 REPLACES = {"cac_stats": "codon_tpu/kernels/cac.py:143",
             "spatial_logits": "codon_tpu/kernels/cac.py:193",
@@ -594,11 +650,12 @@ def write_scale_dir(root: str, seed: int = 0):
 def eval_once(data: str, out: str, jpath: str, batch: int, extra=(),
               ckpt: str = CKPT, dtype: str = "bf16", variant: str = "codon"):
     """One in-process `cli eval`, bf16 (or `dtype`) -> (summary, wall
-    seconds)."""
+    seconds). ckpt None: the variant's own init (the cli's seed 0)."""
     from codon_tpu_torch import cli
     t0 = time.time()
     rc = cli.main(["eval", "--scale", "4", "--data-dir", data,
-                   "--ckpt", ckpt, "--variant", variant, "--batch",
+                   *(["--ckpt", ckpt] if ckpt else []),
+                   "--variant", variant, "--batch",
                    str(batch), "--dtype", dtype, "--out", out,
                    "--json", jpath, "--device", DEVICE, *extra])
     wall = time.time() - t0
@@ -1938,11 +1995,13 @@ def grad_distance(a, b, paths):
     """-> (the gradient tree's relative L2 distance |a - b| / |b|, the
     worst leaf's max |a - b| over its max |b|, that leaf), over the leaves
     the forward reads."""
-    from codon_tpu_torch.train.trainer import UNUSED_HEADS
+    from codon_tpu_torch.models.variants import get_variant
+    from codon_tpu_torch.train.trainer import top_name
+    unread = get_variant("codon").unread
     num = den = worst = 0.0
     worst_path = None
     for path, x, y in zip(paths, a, b):
-        if path.startswith(UNUSED_HEADS):
+        if top_name(path) in unread:
             continue
         d = (x.float() - y.float())
         num += float((d * d).sum())
@@ -1959,7 +2018,9 @@ def compare_train_grads(kc, data: str):
     fp32 then bf16, b16 p64, x4_ship4's weights -> a row a dtype. bf16 is
     also measured against the fp32 plain step."""
     import torch
-    from codon_tpu_torch.train.trainer import UNUSED_HEADS, tree_items
+    from codon_tpu_torch.models.variants import get_variant
+    from codon_tpu_torch.train.trainer import top_name, tree_items
+    unread = get_variant("codon").unread
     params = ship4_params()
     _, batch = train_batch(data)
     paths = [p for p, _ in tree_items(params)]
@@ -1980,7 +2041,7 @@ def compare_train_grads(kc, data: str):
         need(sum(kc.launches().values()) == 0,
              "the plain-stage step launched a CAC kernel")
         dead = [p for p, g in zip(paths, gk) if float(g.abs().max()) == 0]
-        need(dead == [p for p in paths if p.startswith(UNUSED_HEADS)],
+        need(dead == [p for p in paths if top_name(p) in unread],
              f"{dtype}: leaves without a gradient: {dead}")
         tree, worst, worst_path = grad_distance(gk, gt, paths)
         loss_rel = abs(float(lk) - float(lt)) / abs(float(lt))
@@ -2241,6 +2302,328 @@ def time_training(kc, data: str):
                    TIME_ITERS, "device_ms_a_step": busy / TIME_ITERS,
                    "idle_share": max(0.0, 1.0 - busy / wall_ms)}
     return res
+
+
+# ---------------------------------------------------------------------------
+# phases 27-31: the ablation zoo
+# ---------------------------------------------------------------------------
+
+def zoo_batch(data: str):
+    """The zoo's cell batch: the scale dir's second batch of 4, two scenes
+    of 463 x 370 and two of 450 x 375, padded to 480 x 384 with a mask."""
+    from codon_tpu_torch.data.io import discover_pairs, load_sample
+    from codon_tpu_torch.data.pipeline import make_batch
+    names = discover_pairs(data)[4:8]
+    b = make_batch([load_sample(data, n) for n in names], 32, DEVICE,
+                   fixed_hw=MAIN_SHAPE[1:3])
+    need(sorted(set(b.sizes)) == sorted(set(ZOO_SIZES)),
+         f"the zoo batch holds sizes {b.sizes}, expected {ZOO_SIZES}")
+    return b
+
+
+def zoo_params(name, device=None):
+    """Zoo net `name`'s own init from ZOO_SEED (on the card unless `device`
+    says otherwise): what `cli eval` and `cli train` draw without a
+    checkpoint."""
+    import torch
+    from codon_tpu_torch.models.variants import get_variant
+    return get_variant("zoo:" + name).init(
+        torch.Generator().manual_seed(ZOO_SEED), device or DEVICE)
+
+
+def run_zoo_nets(kc, kq, data: str):
+    """Phase 27: each of the 27 zoo nets at the cell shape, its own init:
+    fp32 and bf16 forwards (finite, bf16 within ZOO_BF16_REL of fp32), no
+    hand-written kernel launched (the counts set to 0 before and read
+    after); for the nets with a global reduction, the masked batch against
+    each image alone; the device ms of a forward in each dtype. Yields a
+    row a net as it goes."""
+    import torch
+    from codon_tpu_torch.core.params import BF16
+    from codon_tpu_torch.models import zoo
+    from codon_tpu_torch.models.variants import get_variant
+    b = zoo_batch(data)
+    valid = b.mask[..., 0] > 0
+    for name in zoo.list_zoo():
+        v32, vbf = get_variant("zoo:" + name), get_variant("zoo:" + name,
+                                                           BF16)
+        params = zoo_params(name)
+
+        def fwd(v):
+            return v.forward(params, b.depth, b.color, mask=b.mask)
+        reset_counts(kc, kq)
+        y32, ybf = fwd(v32), fwd(vbf)
+        torch.cuda.synchronize()
+        counts = read_counts(kc, kq)
+        need(sum(counts.values()) == 0,
+             f"zoo:{name} launched {counts}: the zoo's float path has no "
+             f"hand-written kernel")
+        need(bool(torch.isfinite(y32).all() and torch.isfinite(ybf).all()),
+             f"zoo:{name}: non-finite forward")
+        scale = float(y32[valid].abs().mean())
+        rel = float((ybf - y32)[valid].abs().mean()) / scale
+        need(rel <= ZOO_BF16_REL, f"zoo:{name}: bf16 mean |d| {rel:.3e} of "
+             f"the fp32 output's mean |y|, > {ZOO_BF16_REL}")
+        row = {"name": name, "bf16_rel_mean": rel, "mean_abs_y": scale,
+               "params": sum(t.numel() for t in params.values())}
+        if name in ZOO_GLOBAL:
+            worst = 0.0
+            atol, rtol = ZOO_IMAGE_TOL
+            for i, (h, w) in enumerate(b.sizes):
+                alone = v32.forward(params,
+                                    b.depth[i:i + 1, :h, :w].contiguous(),
+                                    b.color[i:i + 1, :h, :w].contiguous())
+                d = float((y32[i:i + 1, :h, :w] - alone).abs().max())
+                lim = atol + rtol * float(alone.abs().max())
+                need(d <= lim, f"zoo:{name}: image {i} of the masked batch "
+                     f"differs from the image alone by {d} > {lim}")
+                worst = max(worst, d)
+            row["per_image_max_abs_diff"] = worst
+        row["bf16_ms"] = time_ms(lambda: fwd(vbf), warmup=1, iters=5)
+        row["fp32_ms"] = time_ms(lambda: fwd(v32), warmup=0, iters=2)
+        del params, y32, ybf
+        yield row
+
+
+def compare_zoo_codon(kc, data: str):
+    """Phase 28: the zoo's CODONNet entry on x4_ship4 (carried across as the
+    reference's state dict, then by rank) against `codon` with the CAC
+    kernels, fp32 and bf16, on the main path's first batch; CAC launches
+    counted over both dtypes' forwards: none on the zoo path, 5 a forward
+    on codon's."""
+    import torch
+    from codon_tpu_torch.checkpoint.native import load_npz, params_from_numpy
+    from codon_tpu_torch.checkpoint.torch_convert import (
+        generic_state_dict_to_flat, params_to_torch_state_dict)
+    from codon_tpu_torch.core.params import BF16, FP32
+    from codon_tpu_torch.models.variants import get_variant
+    tree = load_npz(CKPT)
+    flat = generic_state_dict_to_flat(params_to_torch_state_dict(
+        tree, get_variant("codon").cfg))
+    zp, cp = params_from_numpy(flat, DEVICE), params_from_numpy(tree, DEVICE)
+    b = first_batch(data)
+    res, zoo_counts, codon_counts = {}, None, None
+    for label, dt in (("fp32", FP32), ("bf16", BF16)):
+        kc.reset_launches()
+        yz = get_variant("zoo:" + ZOO_CODON, dt).forward(
+            zp, b.depth, b.color, mask=b.mask)
+        torch.cuda.synchronize()
+        cz = kc.launches()
+        kc.reset_launches()
+        yc = get_variant("codon", dt).forward(cp, b.depth, b.color,
+                                              mask=b.mask)
+        torch.cuda.synchronize()
+        cc = kc.launches()
+        zoo_counts = cz if zoo_counts is None else {
+            k: zoo_counts[k] + v for k, v in cz.items()}
+        codon_counts = cc if codon_counts is None else {
+            k: codon_counts[k] + v for k, v in cc.items()}
+        need(bool(torch.isfinite(yz).all()), f"zoo CODON {label}: "
+             f"non-finite")
+        res[label] = float((yz - yc).abs().max())
+    need(res["fp32"] <= FWD_TOL, f"zoo CODON vs codon fp32: {res['fp32']} > "
+         f"{FWD_TOL}")
+    need(res["bf16"] <= ZOO_CODON_BF16_ATOL, f"zoo CODON vs codon bf16: "
+         f"{res['bf16']} > {ZOO_CODON_BF16_ATOL}")
+    need(all(v == 0 for v in zoo_counts.values()),
+         f"the zoo's CODON launched CAC kernels: {zoo_counts}")
+    need(all(v == 10 for v in codon_counts.values()),
+         f"codon launched {codon_counts}: expected 10 of each (5 stages, "
+         f"two forwards)")
+    return res, zoo_counts, codon_counts
+
+
+def run_zoo_evals(kc, kq, data: str, tmp: str):
+    """Phase 29: `cli eval --variant zoo:<net> --tta8 --device-metrics`
+    (bf16, b4, the net's own init) for ZOO_EVAL_NETS, the counts set to 0
+    just before and read just after each: none launches a kernel."""
+    runs = {}
+    for name in ZOO_EVAL_NETS:
+        out = os.path.join(tmp, f"zoo_{name}")
+        reset_counts(kc, kq)
+        summary, wall = eval_once(data, out, out + ".json", 4,
+                                  ["--tta8", "--device-metrics"], ckpt=None,
+                                  variant="zoo:" + name)
+        counts = read_counts(kc, kq)
+        need(len(summary["per_image"]) == len(SCENES) and
+             all(math.isfinite(summary[k])
+                 for k in ("mean_rmse", "mean_ssim")),
+             f"the zoo:{name} eval did not score every image")
+        need(summary["tta_transforms"] == 8, "the zoo eval ran no TTA8")
+        need(sum(counts.values()) == 0, f"the zoo:{name} eval launched "
+             f"{counts}")
+        runs[name] = (summary, wall, counts)
+    return runs
+
+
+def zoo_int8_calls(name):
+    """(k, C_in a group, groups, pooled) of each quantized conv call of one
+    forward of zoo net `name`, recorded on the CPU (pooled: the CALayer's
+    1 x 1 convs on a (N, 1, 1, C) vector)."""
+    import torch
+    from codon_tpu_torch.core.ops import TorchOps
+    from codon_tpu_torch.models.variants import get_variant
+    from codon_tpu_torch.quant_ops import _skip_quant
+    calls = []
+
+    class Record(TorchOps):
+        def conv2d(self, x, w, *, mask=None, groups=1, name=None):
+            if not _skip_quant(w):
+                calls.append((w.shape[0], w.shape[2], groups,
+                              tuple(x.shape[1:3]) == (1, 1)))
+            return super().conv2d(x, w, mask=mask, groups=groups, name=name)
+
+    v = get_variant("zoo:" + name)
+    v.forward(zoo_params(name, "cpu"), torch.rand(1, 9, 7, 1),
+              torch.rand(1, 9, 7, 1), ops=Record())
+    return calls
+
+
+def zoo_int8_launches(kq, calls, n, h, w):
+    """The quant launches of one dynamic int8 forward of n images at h x w:
+    at each call, a block of images takes a quantize-gather, a GEMM and an
+    epilogue, a grouped call a quantize of all C and each group's own
+    three; a narrow group's widths padded to 16 input channels first."""
+    out = dict.fromkeys(("quant_im2col", "dequant_epilogue", "int8_gemm"), 0)
+    for k, cg, groups, pooled in calls:
+        cgp = -(-cg // 16) * 16
+        hh, ww = (1, 1) if pooled else (h, w)
+        blocks = len(kq.image_blocks(n, hh, ww, k * k * cgp))
+        out["quant_im2col"] += blocks * (groups + (groups > 1))
+        out["dequant_epilogue"] += blocks * groups
+        out["int8_gemm"] += blocks * groups
+    return out
+
+
+def run_zoo_int8(kc, kq, data: str, tmp: str):
+    """Phase 30: for ZOO_INT8_NETS (their narrow sites: RCAN's 64 -> 4 ->
+    64 gate on the pooled vector, CGNL's grouped z with 4 channels a
+    group), the fp32 dynamic int8 forward of the zoo batch through the
+    quant kernels against their plain versions (cuDNN deterministic):
+    bitwise; then `cli eval --dtype int8` with the counts set to 0 just
+    before and read just after, against the launches each call should
+    make."""
+    import torch
+    from codon_tpu_torch.models.variants import get_variant
+    from codon_tpu_torch.quant_ops import Int8Ops
+    b = zoo_batch(data)
+    n_images = len(SCENES)
+    batches = -(-n_images // 4)
+    res = {}
+    for name in ZOO_INT8_NETS:
+        params = zoo_params(name)
+        v = get_variant("zoo:" + name)
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            outs = [v.forward(params, b.depth, b.color, mask=b.mask,
+                              ops=Int8Ops(quant_impl=impl))
+                    for impl in (None, "plain")]
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        need(bool(torch.isfinite(outs[0]).all()),
+             f"zoo:{name}: non-finite fp32 int8 forward")
+        d_plain = float((outs[0] - outs[1]).abs().max())
+        need(torch.equal(outs[0], outs[1]), f"zoo:{name} fp32 int8 forward, "
+             f"quant kernels vs plain: max abs diff {d_plain}, not bitwise")
+        calls = zoo_int8_calls(name)
+        narrow = sum(1 for k, cg, g, pooled in calls if cg % 16 or pooled)
+        want = {k: batches * v for k, v in zoo_int8_launches(
+            kq, calls, *MAIN_SHAPE[:3]).items()}
+        out = os.path.join(tmp, f"zoo_{name}_int8")
+        reset_counts(kc, kq)
+        summary, wall = eval_once(data, out, out + ".json", 4, ckpt=None,
+                                  dtype="int8", variant="zoo:" + name)
+        counts = read_counts(kc, kq)
+        need(len(summary["per_image"]) == n_images and
+             all(math.isfinite(summary[k])
+                 for k in ("mean_rmse", "mean_ssim")),
+             f"the zoo:{name} int8 eval did not score every image")
+        for k in ("cac_stats", "spatial_logits", "cac_apply"):
+            need(counts[k] == 0, f"zoo:{name} int8 eval launched {k}")
+        for k, n in want.items():
+            need(counts[k] == n, f"zoo:{name} int8 eval: {k} launched "
+                 f"{counts[k]} times; expected {n}")
+        res[name] = {"summary": summary, "wall_s": wall, "counts": counts,
+                     "fp32_kernels_vs_plain": d_plain,
+                     "quantized_calls_a_forward": len(calls),
+                     "narrow_calls_a_forward": narrow}
+        del params, outs
+    return res
+
+
+def run_zoo_train(kc, data: str, tmp: str):
+    """Phase 31: `cli train --variant zoo:<net>` (bf16, b16 p64, the net's
+    own init, weight decay on) for ZOO_TRAIN_NETS: finite losses that
+    fall (the last half's mean below the first half's), no CAC launch, and
+    every unread leaf moved by the weight decay alone (Adam's update of a
+    zero gradient is 0), every other leaf trained."""
+    import numpy as np
+    from codon_tpu_torch.checkpoint.native import load_npz
+    from codon_tpu_torch.models.variants import get_variant
+    from codon_tpu_torch.train.trainer import top_name
+    lr = 1e-4                        # cli train's default
+    res = {}
+    for name in ZOO_TRAIN_NETS:
+        ck = os.path.join(tmp, f"zoo_train_{name}.npz")
+        out, counts, wall = train_cli(kc, [
+            "--data-dir", data, "--variant", "zoo:" + name,
+            "--steps", str(ZOO_TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+            "--patch", str(TRAIN_PATCH), "--log-every", "1",
+            "--weight-decay", str(ZOO_WEIGHT_DECAY), "--ckpt-out", ck])
+        losses = train_losses(out)
+        half = ZOO_TRAIN_STEPS // 2
+        need(len(losses) == ZOO_TRAIN_STEPS and
+             sum(losses[half:]) < sum(losses[:half]),
+             f"zoo:{name} training losses {losses} do not fall")
+        need(sum(counts.values()) == 0, f"zoo:{name} training launched "
+             f"{counts}")
+        init = {k: t.numpy() for k, t in zoo_params(name, "cpu").items()}
+        final = load_npz(ck)
+        unread = get_variant("zoo:" + name).unread
+        decay = (1.0 - lr * ZOO_WEIGHT_DECAY) ** ZOO_TRAIN_STEPS
+        worst, trained = 0.0, 0
+        for k, p0 in init.items():
+            p1 = np.asarray(final[k], np.float64)
+            if top_name(k) in unread:
+                d = np.abs(p1 - p0.astype(np.float64) * decay)
+                need(bool((d <= 1e-6 * np.abs(p0) + 1e-12).all()),
+                     f"zoo:{name}: unread leaf {k} moved by {d.max()} "
+                     f"beyond its weight decay")
+                worst = max(worst, float(d.max()))
+            elif np.abs(p1 - p0 * decay).max() > 1e-6 * np.abs(p0).max():
+                trained += 1
+        read = sum(1 for k in init if top_name(k) not in unread)
+        need(trained == read, f"zoo:{name}: {read - trained} read leaves did "
+             f"not train")
+        res[name] = {"losses": losses, "wall_s": wall, "counts": counts,
+                     "unread_leaves": sum(1 for k in init
+                                          if top_name(k) in unread),
+                     "unread_max_abs_diff": worst}
+    return res
+
+
+def run_batch1_step(kc, data: str):
+    """The batch-1 bf16 training step of `codon` on the card, from
+    x4_ship4, through the CAC kernels: finite loss and gradient norm, 5
+    launches of each CAC kernel (counts set to 0 just before)."""
+    import torch
+    sampler, _ = train_batch(data)
+    dev = torch.device(DEVICE)
+    batch = {k: torch.from_numpy(v[:1]).to(dev)
+             for k, v in sampler.sample_at(0).items()}
+    step, opt = train_step_for("bf16")
+    params = ship4_params()
+    state = opt.init(params)
+    kc.reset_launches()
+    params, state, m = step(params, state, batch)
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    counts = kc.launches()
+    need(math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0,
+         f"batch-1 step: loss {loss}, grad_norm {gnorm}")
+    need(counts == {k: 5 for k in counts}, f"batch-1 step launched "
+         f"{counts}: expected 5 of each CAC kernel")
+    return {"loss": loss, "grad_norm": gnorm, "counts": counts}
 
 
 def main() -> int:
@@ -2620,6 +3003,10 @@ def main() -> int:
             f"{q['int8_rmse']}, mean SSIM {q['int8_ssim']}")
         say(f"train on synthesized degradation, 5 steps: losses "
             f"{tr['synthesized']['losses']}")
+        b1 = run_batch1_step(kc, data)
+        say(f"train batch 1 bf16 p{TRAIN_PATCH} from x4_ship4: loss "
+            f"{b1['loss']:.6f}, grad_norm {b1['grad_norm']:.4f}; launches "
+            f"{b1['counts']}")
 
         # 25-26. training times and the device's idle share
         tt = time_training(kc, data)
@@ -2639,16 +3026,82 @@ def main() -> int:
             f"{lp['idle_share']:.1%} ({card})")
         say(f"train phases: {time.time() - t0:.1f} s")
 
-    # 27. results
+        # 27. every zoo net at the cell shape
+        t0 = time.time()
+        zoo_rows = []
+        for r in run_zoo_nets(kc, kq, data):
+            zoo_rows.append(r)
+            say(f"zoo {r['name']} b4 384x480 masked, own init, "
+                f"{r['params']} params: bf16 {r['bf16_ms']:.3f} ms, fp32 "
+                f"{r['fp32_ms']:.3f} ms a forward ({card}); bf16 vs fp32 "
+                f"mean |d| {r['bf16_rel_mean']:.3e} of mean |y| "
+                f"{r['mean_abs_y']:.4g} (<= {ZOO_BF16_REL})"
+                + (f"; masked batch vs each image alone max |d| "
+                   f"{r['per_image_max_abs_diff']:.3e}"
+                   if "per_image_max_abs_diff" in r else "")
+                + "; no kernel launched")
+        say(f"zoo nets: {len(zoo_rows)}, bf16 vs fp32 worst mean |d| "
+            f"{max(r['bf16_rel_mean'] for r in zoo_rows):.3e} of mean |y|; "
+            f"{time.time() - t0:.1f} s")
+
+        # 28. the zoo's CODONNet against the kernel path
+        zc, zc_zoo, zc_codon = compare_zoo_codon(kc, data)
+        say(f"zoo CODON ({ZOO_CODON}) on x4_ship4 vs codon with the CAC "
+            f"kernels, first batch: fp32 max |d| {zc['fp32']:.3e} (<= "
+            f"{FWD_TOL}), bf16 {zc['bf16']:.3e} (<= {ZOO_CODON_BF16_ATOL}); "
+            f"launches over both: zoo {zc_zoo}, codon {zc_codon}")
+
+        # 29. cli eval of zoo nets with TTA8 and metrics on the card
+        zev = run_zoo_evals(kc, kq, data, tmp)
+        for name, (r, r_wall, r_counts) in zev.items():
+            say(f"zoo eval: cli eval --variant zoo:{name} --tta8 "
+                f"--device-metrics bf16 b4 (own init), mean RMSE "
+                f"{r['mean_rmse']}, mean SSIM {r['mean_ssim']}, "
+                f"{r_wall:.1f} s wall; img/s steady "
+                f"{r['img_per_sec_steady']}; launches {r_counts}")
+
+        # 30. the zoo in int8: the narrow sites on the quant kernels
+        z8 = run_zoo_int8(kc, kq, data, tmp)
+        for name, r in z8.items():
+            say(f"zoo int8: zoo:{name} fp32 dynamic int8 forward, quant "
+                f"kernels vs plain max |d| {r['fp32_kernels_vs_plain']:.3e} "
+                f"(bitwise); cli eval --dtype int8 b4, mean RMSE "
+                f"{r['summary']['mean_rmse']}, mean SSIM "
+                f"{r['summary']['mean_ssim']}, img/s steady "
+                f"{r['summary']['img_per_sec_steady']}; "
+                f"{r['quantized_calls_a_forward']} quantized conv calls a "
+                f"forward, {r['narrow_calls_a_forward']} of them narrow "
+                f"(padded); launches {r['counts']}")
+
+        # 31. cli train of zoo nets
+        ztr = run_zoo_train(kc, data, tmp)
+        for name, r in ztr.items():
+            say(f"zoo train: cli train --variant zoo:{name} bf16 "
+                f"b{TRAIN_BATCH} p{TRAIN_PATCH} {ZOO_TRAIN_STEPS} steps "
+                f"(own init, weight decay {ZOO_WEIGHT_DECAY}), losses "
+                f"{r['losses']}, {r['wall_s']:.1f} s wall; "
+                f"{r['unread_leaves']} unread leaves moved by the decay "
+                f"alone (max |d| {r['unread_max_abs_diff']:.3e}); launches "
+                f"{r['counts']}")
+        say(f"zoo phases: {time.time() - t0:.1f} s")
+
+    # 32. results
     int8_paths = {"eval_int8": i8_counts,
                   "eval_int8_tta8_device_metrics": i8t_counts,
                   "eval_int8_ensemble2_tta": i8e_counts,
                   "eval_codon_fused_int8": fu8_counts,
                   "eval_rmcr_fuse_rmcr_int8": seq["int8"][2]}
+    int8_paths.update({f"eval_zoo_{n}_int8": r["counts"]
+                       for n, r in z8.items()})
     cac_paths = {"eval_codon_fused": fu_counts,
                  "eval_codon_fused_tta8_device_metrics": fut_counts,
                  "eval_rmcr_fuse_rmcr": seq["bf16"][2],
-                 **{f"eval_pth_{k}": v[2] for k, v in pth_runs.items()}}
+                 **{f"eval_pth_{k}": v[2] for k, v in pth_runs.items()},
+                 "train_batch1": b1["counts"],
+                 "zoo_codon_entry": zc_zoo, "codon_beside_zoo": zc_codon,
+                 **{f"eval_zoo_{n}_tta8_device_metrics": v[2]
+                    for n, v in zev.items()},
+                 **{f"train_zoo_{n}": r["counts"] for n, r in ztr.items()}}
     kernels = []
     for name in ("cac_stats", "spatial_logits", "cac_apply"):
         t = timings[name]

@@ -12,6 +12,9 @@ tree that `checkpoint.native.params_from_numpy` carries to tensors:
   * per-stage attention_{c,s}{0..4} -> the stacked `cac` subtree
   * `module.` prefixes stripped; the dead attention_{c5,s5} heads mapped
     when cfg.dead_heads, else dropped.
+
+`generic_state_dict_to_flat` converts any state dict by rank into the flat
+parameters of the ablation zoo (`models.zoo`).
 """
 from __future__ import annotations
 
@@ -116,3 +119,22 @@ def load_pth(path: str, cfg):
     else:
         sd, epoch = ckpt, -1
     return torch_state_dict_to_params(sd, cfg), epoch
+
+
+def generic_state_dict_to_flat(sd: Mapping) -> Dict[str, np.ndarray]:
+    """A torch state dict -> the zoo's flat numpy parameters, by rank:
+    4-D conv weights OIHW -> HWIO, 2-D Linear weights (out, in) -> (in,
+    out), 1-D tensors (biases, norm affines and statistics) as they are;
+    `module.` stripped, `num_batches_tracked` dropped. Works for every zoo
+    net, whose parameters are keyed by the torch names themselves."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in _strip_module({k: _np(v) for k, v in sd.items()}).items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if v.ndim == 4:
+            out[k] = v.transpose(2, 3, 1, 0)
+        elif v.ndim == 2:
+            out[k] = v.T
+        else:
+            out[k] = v
+    return out

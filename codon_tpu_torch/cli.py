@@ -609,7 +609,7 @@ def _calibrate(args, variant, params, scale_dir, names, labels, colors,
                use_real, device):
     """--qat-static: per-site static scales from full-frame eval forwards
     (the packed, unrolled forward: calibration sees whole images, not
-    patches)."""
+    patches), with the scale/16 plane under --scale-cond."""
     from codon_tpu_torch.data.pipeline import batched_loader, to_device
     from codon_tpu_torch.quant_ops import calibrate_act_scales
     from codon_tpu_torch.train.data import synthesize_lr
@@ -627,10 +627,17 @@ def _calibrate(args, variant, params, scale_dir, names, labels, colors,
                        to_device(col.astype(np.float32)[None, ..., None]
                                  / 255.0, device), None)
 
+    batches = cal_batches()
+    if args.scale_cond:
+        # the conditioning plane the model sees in eval (with_scale_cond)
+        # and in training (the sampler's cond): every frame is at --scale
+        cond = args.scale / 16.0
+        batches = ((torch.cat([d, torch.full_like(d[..., :1], cond)], -1),
+                    c, m) for d, c, m in batches)
     act_scales = calibrate_act_scales(
         lambda p, d, c, ops, mask: variant.forward(p, d, c, ops=ops,
                                                    mask=mask),
-        params, cal_batches())
+        params, batches)
     if args.no_handoff:
         from codon_tpu_torch.quant_ops import HANDOFF_SITES
         act_scales = {k: v for k, v in act_scales.items()

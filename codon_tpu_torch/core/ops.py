@@ -24,8 +24,16 @@ import torch.nn.functional as F
 
 
 def hwio_to_oihw(w: torch.Tensor) -> torch.Tensor:
-    """HWIO kernel -> OIHW kernel in channels_last memory (O, H, W, I)."""
-    return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    """HWIO kernel -> OIHW kernel in channels_last memory (O, H, W, I); a
+    single-output kernel (O = 1, the head conv) in standard memory instead,
+    because PyTorch's CPU conv backward at batch 1 refuses a channels_last
+    weight of one output channel ("slow_conv2d: grad_weight must be
+    contiguous"). cuDNN takes either: with a channels_last input it lays the
+    weight out channels_last itself."""
+    oihw = w.permute(3, 2, 0, 1)
+    if w.shape[3] == 1:
+        return oihw.contiguous()
+    return oihw.contiguous(memory_format=torch.channels_last)
 
 
 def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor,
@@ -69,6 +77,13 @@ class TorchOps:
         if mask is not None:
             x = x.masked_fill(mask == 0, float("-inf"))
         return x.amax(dim=(1, 2), keepdim=True)
+
+    @staticmethod
+    def global_sum(x, mask=None):
+        """Sum over H, W -> (N, 1, 1, C); with a mask, over valid pixels."""
+        if mask is not None:
+            x = x * mask.to(x.dtype)
+        return x.sum(dim=(1, 2), keepdim=True)
 
     def precommit(self, x, name=None):
         """Stage-boundary handoff to conv site `name`: identity on floats."""

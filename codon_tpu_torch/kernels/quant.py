@@ -22,6 +22,15 @@ once over all channels, then runs each group as a gather of that group's
 channel window, a GEMM against the group's weights, and an epilogue that
 writes the group's output-channel window of the one output tensor.
 
+A narrow site (the zoo's: RCAN's 64 -> 4 -> 64 gate on a pooled (N, 1, 1,
+64) vector, CGNL's grouped 32 -> 64 with 4 channels a group) is padded
+with zeros to the widths the kernels and the GEMM take, on every device
+and route alike: each group's input channels to a multiple of 16 (zero
+codes add nothing to a dot, and a zero never raises an absmax), its output
+channels to a multiple of 8 (zero weights, sliced off after), and a GEMM
+of at most 16 rows to 32 (zero rows, sliced off). The result is the same
+bits as the unpadded conv, and the site still runs the three steps.
+
 The CUDA sources are in `csrc/quant.cu`. Each wrapper takes the plain
 version when its tensors lie on the CPU, and on a CUDA tensor launches the
 kernel or raises; it never falls back. Each counts its launches in a plain
@@ -41,6 +50,8 @@ _VEC = 16                   # quant_im2col writes 16-byte vectors of codes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                 torch.int8: 3}
 _MODE_NONE, _MODE_CHANNEL, _MODE_SAMPLE = 0, 1, 2
+_CO_ALIGN = 8               # dequant_epilogue and _int_mm: C_out by 8
+_GEMM_MIN_ROWS, _GEMM_PAD_ROWS = 17, 32   # _int_mm takes M > 16
 
 
 # ---------------------------------------------------------------------------
@@ -295,6 +306,9 @@ def int8_conv(x, w8, sw, dtype, *, sc=None, sx=None, mask=None, impl=None,
     gathered, multiplied and dequantized into its output window; on the
     card every group's widths must meet the kernels' alignment (C/groups a
     multiple of 16, C_out/groups of 8).
+    A site whose group widths the kernels do not take (C/groups not a
+    multiple of 16, C_out/groups not of 8) runs zero-padded to them, as the
+    module docstring says; so does a GEMM of at most 16 rows.
     """
     if impl not in (None, "plain"):
         raise ValueError(f"impl must be None or 'plain', got {impl!r}")
@@ -308,6 +322,9 @@ def int8_conv(x, w8, sw, dtype, *, sc=None, sx=None, mask=None, impl=None,
           "multiple of {}, got {} {}", cg, groups, w8.dtype, tuple(w8.shape))
     co = w8.shape[3]
     cog = co // groups
+    if cg % _VEC or cog % _CO_ALIGN:
+        return _padded_int8_conv(x, w8, sw, dtype, sc=sc, sx=sx, mask=mask,
+                                 impl=impl, groups=groups)
     kk = k * k * cg
     # column-major, as int8_gemm hands it to cuBLASLt; one (K, C_out/G)
     # matrix a group
@@ -332,10 +349,47 @@ def int8_conv(x, w8, sw, dtype, *, sc=None, sx=None, mask=None, impl=None,
                 patches = im2col(xb, k, c0=g * cg, cg=cg)
             else:
                 patches = im2col(xb, k, sc, sxb)
-            acc = int8_gemm(patches, wmat)
+            m = patches.shape[0]
+            if m < _GEMM_MIN_ROWS:
+                patches = F.pad(patches, (0, 0, 0, _GEMM_PAD_ROWS - m))
+            acc = int8_gemm(patches, wmat)[:m]
             del patches
             epilogue(acc, sw[g * cog:(g + 1) * cog].contiguous(), dtype,
                      (j - i, h, w), sxb,
                      None if mask is None else mask[i:j], out=out[i:j],
                      o0=g * cog)
     return out
+
+
+def _pad_groups(t, groups, width, value=0):
+    """(..., groups * g) -> (..., groups * width): each group's last-axis
+    block padded with `value` to `width`."""
+    g = t.shape[-1] // groups
+    if g == width:
+        return t
+    blocks = t.reshape(*t.shape[:-1], groups, g)
+    return F.pad(blocks, (0, width - g), value=value).reshape(
+        *t.shape[:-1], groups * width).contiguous()
+
+
+def _padded_int8_conv(x, w8, sw, dtype, *, sc, sx, mask, impl, groups):
+    """`int8_conv` of a narrow site, on group widths padded to the kernels'
+    (input channels to a multiple of 16, output channels to one of 8): zero
+    input codes, unit scales on the padded channels, zero weights on the
+    padded outputs, which are sliced off."""
+    k, cg, co = w8.shape[0], w8.shape[2], w8.shape[3]
+    cog = co // groups
+    cgp = -(-cg // _VEC) * _VEC
+    cogp = -(-cog // _CO_ALIGN) * _CO_ALIGN
+    xp = _pad_groups(x, groups, cgp)
+    scp = None if sc is None else _pad_groups(sc, groups, cgp, 1.0)
+    wp = F.pad(w8.reshape(k, k, cg, groups, cog),
+               (0, cogp - cog, 0, 0, 0, cgp - cg))
+    wp = wp.reshape(k, k, cgp, groups * cogp)
+    swp = _pad_groups(sw, groups, cogp, 1.0)
+    out = int8_conv(xp, wp, swp, dtype, sc=scp, sx=sx, mask=mask, impl=impl,
+                    groups=groups)
+    if cogp == cog:
+        return out
+    return out.reshape(*out.shape[:3], groups, cogp)[..., :cog].reshape(
+        *out.shape[:3], co).contiguous()

@@ -1,9 +1,11 @@
-"""Model-variant registry: each name pairs a CodonConfig with its forward.
+"""Model-variant registry: each name pairs a config with its forward and its
+init, as `codon_tpu.models.variants` does, and holds the same 37 names.
 
-The variants of `codon_tpu.models.variants` but its `zoo:*` names (the
-ablation zoo is not ported yet): those that run `codon_forward`, the
-merged-tower `codon_fused` (`codon_forward_fused`) and the attention-free
-`rmcr_fuse_rmcr` (`sequential_tower_forward`).
+The CODONNet family runs `codon_forward`, the merged-tower `codon_fused`
+(`codon_forward_fused`) and the attention-free `rmcr_fuse_rmcr`
+(`sequential_tower_forward`) on `init_codon_params`' tree. Every net of the
+ablation zoo is addressable as "zoo:<name>" (`models.zoo`), with the zoo's
+own init and a forward that is its own training forward.
 """
 from __future__ import annotations
 
@@ -13,14 +15,18 @@ from typing import Callable, Dict
 import torch
 
 from codon_tpu_torch.core.params import DTypePolicy, FP32
+from codon_tpu_torch.models import zoo
 from codon_tpu_torch.models.codon_net import (
     CodonConfig, codon_forward, codon_forward_fused, codon_forward_train,
     init_codon_params, sequential_tower_forward,
     sequential_tower_forward_train)
 
-# each eval forward's grad-enabled sibling (models.codon_net)
+# each eval forward's grad-enabled sibling; the zoo's are added below
 _TRAIN_FORWARDS = {codon_forward: codon_forward_train,
                    sequential_tower_forward: sequential_tower_forward_train}
+# the X4/X8 checkpoint-compat heads: no CODONNet forward reads them, and a
+# warm start from an X4 checkpoint carries them into every CODONNet variant
+_DEAD_HEADS = ("attention_c5", "attention_s5")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,9 +35,15 @@ class Variant:
     cfg: CodonConfig
     doc: str = ""
     forward_fn: Callable = codon_forward
+    # (gen, cfg, device=...) -> the variant's parameter tree
+    init_fn: Callable = init_codon_params
+    # top-level parameter names that the forward never reads: the trainer
+    # gives them a zero gradient, and raises for any other leaf that gets
+    # none
+    unread: tuple = ()
 
     def init(self, gen, device="cuda"):
-        return init_codon_params(gen, self.cfg, device=device)
+        return self.init_fn(gen, self.cfg, device=device)
 
     def forward(self, params, depth, color, mask=None, ops=None):
         return self.forward_fn(params, depth, color, cfg=self.cfg, mask=mask,
@@ -44,7 +56,7 @@ class Variant:
             raise NotImplementedError(
                 f"variant {self.name!r} does not train yet: its merged-tower "
                 f"stage writes the next tensor through views, an eval-only "
-                f"form (ROADMAP Queue A item 10, codon_fused training)")
+                f"form (ROADMAP Queue A, codon_fused training)")
 
     def train_forward(self, params, depth, color, mask=None, ops=None):
         """The forward with autograd on, for training."""
@@ -53,21 +65,46 @@ class Variant:
             params, depth, color, cfg=self.cfg, mask=mask, ops=ops)
 
 
+# name -> (builder(dtypes) -> Variant, doc)
 _REGISTRY: Dict[str, tuple] = {}
 
 
 def _register(name: str, doc: str, forward_fn=codon_forward,
               **cfg_fields) -> None:
-    _REGISTRY[name] = (cfg_fields, doc, forward_fn)
+    unread = _DEAD_HEADS + (() if cfg_fields.get("use_cac", True)
+                            else ("cac",))
+
+    def builder(dtypes):
+        return Variant(name, CodonConfig(dtypes=dtypes, **cfg_fields), doc,
+                       forward_fn, unread=unread)
+    _REGISTRY[name] = (builder, doc)
+
+
+def _register_zoo(zname: str) -> None:
+    entry = zoo.ZOO[zname]
+
+    def init_fn(gen, cfg, device="cuda"):
+        return zoo.zoo_init(zname, gen, dtype=cfg.dtypes.param_dtype,
+                            device=device)
+
+    def train_fn(params, depth, color, *, cfg, mask=None, ops=None):
+        return zoo.zoo_forward(zname, params, depth, color,
+                               dtypes=cfg.dtypes, ops=ops, mask=mask)
+
+    eval_fn = torch.no_grad()(train_fn)
+    _TRAIN_FORWARDS[eval_fn] = train_fn
+
+    def builder(dtypes):
+        return Variant(f"zoo:{zname}", CodonConfig(dtypes=dtypes),
+                       entry["doc"], eval_fn, init_fn, entry["unread"])
+    _REGISTRY[f"zoo:{zname}"] = (builder, entry["doc"])
 
 
 def get_variant(name: str, dtypes: DTypePolicy = FP32) -> Variant:
     if name not in _REGISTRY:
         raise KeyError(f"unknown variant '{name}'; available: "
                        f"{sorted(_REGISTRY)}")
-    fields, doc, forward_fn = _REGISTRY[name]
-    return Variant(name, CodonConfig(dtypes=dtypes, **fields), doc,
-                   forward_fn)
+    return _REGISTRY[name][0](dtypes)
 
 
 def list_variants():
@@ -103,3 +140,5 @@ for _n in (4, 5, 6, 7):
     _register(f"codon_f{_n}", f"CODONNet with {_n} fusion MC iterations "
               "instead of 3 (one fusion weight set: checkpoints of 'codon' "
               "interchange)", dead_heads=True, num_fuse=_n)
+for _z in zoo.list_zoo():
+    _register_zoo(_z)

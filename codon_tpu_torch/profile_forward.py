@@ -24,7 +24,9 @@ int8 convs, the float convs, and the handoffs roundtrip and precommit; a
 grouped conv of `codon_fused` has a range of its own, named by its site,
 e.g. `int8_conv:conv3+conv6`). --variant takes any name of the registry:
 `codon_fused` (merged towers, grouped convs) and `rmcr_fuse_rmcr`
-(sequential towers, no CAC) too.
+(sequential towers, no CAC) too, and the ablation zoo's `zoo:<name>`,
+which without --ckpt runs the zoo's own init from --seed (and, in int8,
+the dynamic per-sample scales: the zoo's convs carry no site names).
 """
 from __future__ import annotations
 
@@ -138,7 +140,8 @@ def main(argv=None) -> int:
                    default="bf16")
     p.add_argument("--ckpt", default=None,
                    help="default checkpoints/x4_ship4.npz, "
-                        "checkpoints/x4_ship4_qat_static.npz with int8")
+                        "checkpoints/x4_ship4_qat_static.npz with int8; a "
+                        "zoo: variant's own random init")
     p.add_argument("--variant", default="codon")
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
@@ -155,12 +158,17 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     variant = get_variant(args.variant, DTYPE_POLICIES[args.dtype])
-    ckpt = args.ckpt or ("checkpoints/x4_ship4_qat_static.npz"
-                         if args.dtype == "int8"
-                         else "checkpoints/x4_ship4.npz")
-    tree = load_npz(ckpt)
-    scales = tree.pop("act_scales", None)
-    params = params_from_numpy(tree, dev)
+    if args.ckpt is None and variant.name.startswith("zoo:"):
+        # the zoo ships no checkpoint: its own init, from --seed
+        ckpt, scales = None, None
+        params = variant.init(torch.Generator().manual_seed(args.seed), dev)
+    else:
+        ckpt = args.ckpt or ("checkpoints/x4_ship4_qat_static.npz"
+                             if args.dtype == "int8"
+                             else "checkpoints/x4_ship4.npz")
+        tree = load_npz(ckpt)
+        scales = tree.pop("act_scales", None)
+        params = params_from_numpy(tree, dev)
     ops = None
     if args.dtype == "int8":
         from codon_tpu_torch.quant_ops import Int8Ops, Int8StaticOps

@@ -32,9 +32,6 @@ import torch
 from codon_tpu_torch.core.params import full_fp32
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
-# the X4/X8 checkpoint-compat heads (dead_heads): carried, never read by the
-# forward, so their gradient is zero, as JAX's is
-UNUSED_HEADS = ("attention_c5", "attention_s5")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +90,12 @@ def tree_items(tree, prefix=""):
         else:
             out.append((prefix + k, v))
     return out
+
+
+def top_name(path: str) -> str:
+    """A tree_items path's top-level parameter name: "cac/ch_w1" -> "cac",
+    "attention_c5.mlp.1.weight" (a zoo net's flat key) -> "attention_c5"."""
+    return path.split("/")[0].split(".")[0]
 
 
 def tree_rebuild(tree, leaves):
@@ -257,7 +260,9 @@ class TrainStep:
     def value_and_grad(self, params, batch):
         """-> (loss, [grad of each leaf in tree_items order]). A leaf that
         the forward should reach but got no gradient raises: a cut graph
-        would otherwise train only what lies behind the cut."""
+        would otherwise train only what lies behind the cut. The leaves
+        under the variant's `unread` names get zeros, as JAX's gradient
+        gives them."""
         items = tree_items(params)
         leaves = [t.detach().requires_grad_(True) for _, t in items]
         with torch.enable_grad(), full_fp32():
@@ -266,7 +271,7 @@ class TrainStep:
         out = []
         for (path, t), g in zip(items, grads):
             if g is None:
-                if not path.startswith(UNUSED_HEADS):
+                if top_name(path) not in self.variant.unread:
                     raise RuntimeError(
                         f"no gradient reached parameter {path!r}: the "
                         f"training forward's graph is cut")

@@ -150,7 +150,9 @@ def test_golden_matches_jax(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("variant", ["codon", "codon_fused",
-                                     "rmcr_fuse_rmcr", "codon_sc"])
+                                     "rmcr_fuse_rmcr", "codon_sc",
+                                     "zoo:rmcr_fuse_rmcr_rcan",
+                                     "zoo:basenet_non2"])
 def test_info_matches_jax(capsys, variant):
     capsys.readouterr()
     assert tcli.main(["info", "--variant", variant, "--device", "cpu"]) == 0
@@ -165,7 +167,7 @@ def test_info_matches_jax(capsys, variant):
                 if ln.startswith(reg)]
     (j_reg,) = [ln[len(reg):].split(", ") for ln in want
                 if ln.startswith(reg)]
-    assert t_reg == [n for n in j_reg if not n.startswith("zoo:")]
+    assert t_reg == j_reg
     assert got[0].startswith(f"torch {torch.__version__}, device: cpu")
 
 

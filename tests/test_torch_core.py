@@ -68,6 +68,37 @@ def test_global_pools_match_xla(masked):
     np.testing.assert_array_equal(
         ops.global_max(to_torch(x), tm).numpy(),
         np.asarray(jops.global_max(jnp.asarray(x), jm)))
+    np.testing.assert_allclose(
+        ops.global_sum(to_torch(x), tm).numpy(),
+        np.asarray(jops.global_sum(jnp.asarray(x), jm)), atol=1e-5,
+        rtol=1e-6)
+
+
+@pytest.mark.parametrize("n,ci,co,k", [(1, 64, 1, 3), (2, 64, 1, 3),
+                                       (1, 64, 64, 3), (1, 2, 1, 5)],
+                         ids=["head-b1", "head-b2", "64-b1", "gate-b1"])
+def test_conv_backward_matches_jax(n, ci, co, k):
+    """The conv's gradients against JAX's vjp, at batch 1 too: PyTorch's
+    CPU conv backward refuses a channels_last weight of one output channel
+    at N = 1 (the head conv, 64 -> 1), so that weight goes standard."""
+    import jax
+    rng = np.random.RandomState(n + ci + co + k)
+    x = rng.randn(n, 9, 7, ci).astype(np.float32)
+    w = (rng.randn(k, k, ci, co) * 0.1).astype(np.float32)
+    cot = rng.randn(n, 9, 7, co).astype(np.float32)
+    jops = XlaOps(precision="highest")
+    _, vjp = jax.vjp(lambda a, b: jops.conv2d(a, b), jnp.asarray(x),
+                     jnp.asarray(w))
+    want = vjp(jnp.asarray(cot))
+    xt = to_torch(x).requires_grad_(True)
+    wt = to_torch(w).requires_grad_(True)
+    got = torch.autograd.grad(TorchOps().conv2d(xt, wt), (xt, wt),
+                              to_torch(cot))
+    for g, wv in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wv), atol=1e-4,
+                                   rtol=1e-5)
+    if co == 1:
+        assert hwio_to_oihw(wt).is_contiguous()
 
 
 def test_handoff_hooks_are_identities():

@@ -52,7 +52,9 @@ def test_card_files_exist():
                  "codon_tpu_torch/models/codon_net.py", "chip_smoke.py",
                  "codon_tpu_torch/quant_ops.py",
                  "codon_tpu_torch/kernels/quant.py",
-                 "codon_tpu_torch/checkpoint/torch_convert.py"):
+                 "codon_tpu_torch/checkpoint/torch_convert.py",
+                 "codon_tpu_torch/models/attention.py",
+                 "codon_tpu_torch/models/zoo.py"):
         assert need in names
     assert all(os.path.exists(p) for p in _card_files())
 
@@ -95,6 +97,16 @@ with tempfile.TemporaryDirectory() as tmp:
         assert scales is None
         out = fv.forward(q, torch.rand(1, 9, 7, 1), torch.rand(1, 9, 7, 1))
         assert out.shape == (1, 9, 7, 1)
+# a zoo net: its own init, the eval forward and a training step
+from codon_tpu_torch.train.trainer import TrainConfig, make_train_step
+zv = get_variant("zoo:rmcr_fuse_rmcr_rcan")
+zp = zv.init(torch.Generator().manual_seed(0), "cpu")
+out = zv.forward(zp, torch.rand(1, 9, 7, 1), torch.rand(1, 9, 7, 1))
+assert out.shape == (1, 9, 7, 1)
+step, opt = make_train_step(zv, TrainConfig())
+batch = {{"depth": torch.rand(1, 9, 7, 1), "color": torch.rand(1, 9, 7, 1),
+          "label": torch.rand(1, 9, 7, 1), "mask": torch.ones(1, 9, 7, 1)}}
+step(zp, opt.init(zp), batch)
 print("ok")
 """
 

@@ -16,8 +16,8 @@ right, and at the transposed padded shape 480 x 384). The copy kernels
 compute the identity and are held to it bitwise, with a sentinel around
 the output that must stay untouched. The int8 conv's kernels, quant_im2col
 and dequant_epilogue, round as their plain versions do and are held to
-them bitwise, alone, composed over image blocks, and in whole int8
-forwards.
+them bitwise, alone, composed over image blocks, at the zoo's narrow
+sites (zero-padded to their widths), and in whole int8 forwards.
 """
 import dataclasses
 import os
@@ -945,3 +945,76 @@ def test_cuda_train_step_launches_and_gradients():
     ref = res["fp32", "torch"][1]
     assert (_grad_distance(res["bf16", "kernel"][1], ref)[0]
             <= 1.5 * _grad_distance(res["bf16", "torch"][1], ref)[0])
+
+
+# the zoo's narrow int8 sites: (x shape, HWIO w shape, groups): RCAN's
+# gate on a pooled vector (M = N rows, C_out 4, then C_in 4), CGNL's
+# grouped z (4 input channels a group), and an odd 3x3 site
+NARROW_SITES = {"pooled_64_to_4": ((3, 1, 1, 64), (1, 1, 64, 4), 1),
+                "pooled_4_to_64": ((3, 1, 1, 4), (1, 1, 4, 64), 1),
+                "grouped_z": ((2, 37, 29, 32), (1, 1, 4, 64), 8),
+                "odd_3x3": ((2, 37, 29, 20), (3, 3, 20, 12), 1)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("site", list(NARROW_SITES))
+@needs_cuda
+def test_cuda_narrow_int8_conv_matches_plain(site, dtype):
+    """A narrow site runs zero-padded to the kernels' widths, through the
+    kernels (one launch of each a group, a quantize first when grouped),
+    bitwise equal to the plain route on the same padding."""
+    from codon_tpu_torch.kernels import quant as kq
+    xs, ws, groups = NARROW_SITES[site]
+    x, sc, sx = _quant_input(xs, dtype, seed=180 + len(site))
+    g = torch.Generator(device="cuda").manual_seed(181)
+    w8 = torch.randint(-127, 128, ws, generator=g, device="cuda",
+                       dtype=torch.int8)
+    sw = torch.rand((ws[3],), generator=g, device="cuda") * 1e-3
+    m = None if xs[1] == 1 else torch.ones(xs[:3] + (1,), device="cuda")
+    for a, b in ((sc, None), (None, sx)):
+        before = kq.launches()
+        got = kq.int8_conv(x, w8, sw, dtype, sc=a, sx=b, mask=m,
+                           groups=groups)
+        after = kq.launches()
+        n = {k: after[k] - before[k] for k in after}
+        assert n == {"quant_im2col": groups + (groups > 1),
+                     "dequant_epilogue": groups, "int8_gemm": groups}
+        want = kq.int8_conv(x, w8, sw, dtype, sc=a, sx=b, mask=m,
+                            groups=groups, impl="plain")
+        assert got.shape == xs[:3] + (ws[3],) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["basenet_nlar", "rmcr_fuse_rmcr_rcan",
+                                  "rmcr_fuse_rmcr_eccv"])
+@needs_cuda
+def test_cuda_zoo_forward_matches_cpu(name):
+    """A zoo net's fp32 forward, masked, on the card (TF32 off) against
+    the same forward on the CPU: the parity tolerance, atol 5e-4 + rtol
+    1e-3 of the output's max |y| (random-init outputs are differences of
+    large activations); no CAC kernel launches; its int8 forward through
+    the quant kernels equals the plain route bitwise."""
+    from codon_tpu_torch.models.variants import get_variant
+    from codon_tpu_torch.quant_ops import Int8Ops
+    v = get_variant("zoo:" + name)
+    params = v.init(torch.Generator().manual_seed(3), "cpu")
+    rng = np.random.RandomState(190)
+    m = cac_mask()
+    d = rng.rand(N, H, W, 1).astype(np.float32) * m
+    c = rng.rand(N, H, W, 1).astype(np.float32) * m
+    on_cpu = v.forward(params, to_torch(d), to_torch(c), mask=to_torch(m))
+    cuda = {k: t.cuda() for k, t in params.items()}
+    dc, cc, mc = (to_torch(a, "cuda") for a in (d, c, m))
+    tcac.reset_launches()
+    on_card = v.forward(cuda, dc, cc, mask=mc)
+    assert sum(tcac.launches().values()) == 0
+    err = float((on_card.cpu() - on_cpu).abs().max())
+    assert err <= 5e-4 + 1e-3 * float(on_cpu.abs().max()), err
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        k, p = (v.forward(cuda, dc, cc, mask=mc, ops=Int8Ops(quant_impl=i))
+                for i in (None, "plain"))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    assert torch.equal(k, p)

@@ -217,16 +217,18 @@ def test_variant_configs_and_init_match_jax(name):
 
 def test_registry_holds_the_ported_variants():
     from codon_tpu.models.variants import list_variants as jax_list
-    assert list_variants() == sorted(
-        ["codon", "codon_sc", "codon_x16", "codonet_x16_model", "codon_f4",
-         "codon_f5", "codon_f6", "codon_f7", "codon_fused",
-         "rmcr_fuse_rmcr"])
-    # the JAX registry less its ablation zoo
-    assert list_variants() == [n for n in jax_list()
-                               if not n.startswith("zoo:")]
+    # the JAX registry, its ablation zoo included: all 37 names
+    assert list_variants() == jax_list()
+    assert len(list_variants()) == 37
+    assert [n for n in list_variants() if not n.startswith("zoo:")] == \
+        sorted(["codon", "codon_sc", "codon_x16", "codonet_x16_model",
+                "codon_f4", "codon_f5", "codon_f6", "codon_f7",
+                "codon_fused", "rmcr_fuse_rmcr"])
+    for name in jax_list():
+        if name.startswith("zoo:"):        # the zoo's docs are JAX's own
+            assert get_variant(name).doc == jax_variant(name).doc
     with pytest.raises(KeyError, match="unknown variant"):
-        get_variant("zoo:" + next(n for n in jax_list()
-                                  if n.startswith("zoo:"))[4:])
+        get_variant("zoo:no_such_net")
 
 
 def test_f_variants_share_codon_checkpoints():

@@ -12,7 +12,9 @@ Tolerances, and why:
 - the calibrated act_scales against JAX's: within 1e-5 of the site's
   largest scale (float convs sum in other orders; a scale is an absmax /
   127, and a channel whose absmax is 1e-5 of the largest carries that
-  noise relative to itself).
+  noise relative to itself). With --scale-cond, against JAX's
+  calibrate_act_scales called on the plane-augmented frames: within 1e-6
+  absolute (scales of at most ~0.1; they read <= 1e-8).
 """
 import os
 import re
@@ -271,3 +273,54 @@ def test_train_runs_without_forbidden_modules(tmp_path, data):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+def test_batch_1_trains_as_jax(tmp_path, data, capsys):
+    """`--batch 1`: the head conv's weight gradient at N = 1 (a standard-
+    layout weight on the CPU), the first loss as JAX's, and finite steps."""
+    argv = ["--data-dir", data, "--steps", "2", "--patch", "16", "--batch",
+            "1", "--log-every", "1", "--dtype", "fp32", "--ckpt-in", SHIP4]
+    out = _port([*argv, "--ckpt-out", str(tmp_path / "a.npz")], capsys)
+    assert jax_cli.main(["train", *argv, "--ckpt-out",
+                         str(tmp_path / "b.npz")]) == 0
+    jout = capsys.readouterr().out
+    assert abs(float(STEP1.search(out).group(1))
+               - float(STEP1.search(jout).group(1))) <= 2e-5
+    losses = [float(v) for v in re.findall(r"loss ([0-9.]+)", out)]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+
+
+def test_scale_cond_qat_static_calibrates_with_the_plane(tmp_path, data,
+                                                         capsys):
+    """--variant codon_sc --scale-cond --qat-static: calibration feeds the
+    2-channel stem the scale/16 plane, as eval and training do. The scales
+    equal JAX's calibrate_act_scales over the same frames with the plane
+    appended here (JAX's cli itself feeds the 1-channel depth and
+    raises)."""
+    import jax.numpy as jnp
+    from codon_tpu import quant_ops as jq
+    from codon_tpu.data.io import discover_pairs
+    from codon_tpu.data.pipeline import batched_loader
+    from codon_tpu.models.codon_net import widen_stem_params
+    from codon_tpu.models.variants import get_variant
+
+    ck = str(tmp_path / "sc.npz")
+    out = _port(["--data-dir", data, "--steps", "1", *SMALL, "--dtype",
+                 "fp32", "--variant", "codon_sc", "--scale-cond",
+                 "--qat-static", "--ckpt-in", SHIP4, "--ckpt-out", ck],
+                capsys)
+    assert "QAT-static: calibrated 18 conv sites on 3 full frames" in out
+    params = widen_stem_params(jax_load_npz(SHIP4), 2)
+    batches = [(jnp.concatenate([b.depth, jnp.full_like(b.depth[..., :1],
+                                                        4 / 16.0)], -1),
+                b.color, b.mask)
+               for b in batched_loader(data, discover_pairs(data), 2, 32)]
+    want = jq.calibrate_act_scales(get_variant("codon_sc").forward, params,
+                                   batches)
+    with np.load(ck) as f:
+        got = {k[len("act_scales/"):]: f[k] for k in f.files
+               if k.startswith("act_scales/")}
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-6,
+                                   err_msg=k)

@@ -113,3 +113,25 @@ class RefNet(torch.nn.Module):
                 mod = mod._modules[part]
             mod.register_parameter(leaf, torch.nn.Parameter(
                 torch.as_tensor(np.asarray(value)), requires_grad=False))
+
+
+# The zoo tests' two input cases: one unmasked 16 x 13 image, and two
+# images padded to 17 x 15 with two valid sizes, masked.
+ZOO_CASES = {"unmasked": (1, 16, 13, None),
+             "masked": (2, 17, 15, [(17, 15), (11, 9)])}
+
+
+def zoo_case(case, seed=0):
+    """-> (depth, color, mask or None), float32 numpy, of a ZOO_CASES
+    case; depth and color are zero on the padding, as the loader leaves
+    them."""
+    n, h, w, valid = ZOO_CASES[case]
+    rng = np.random.RandomState(seed)
+    depth = rng.rand(n, h, w, 1).astype(np.float32)
+    color = rng.rand(n, h, w, 1).astype(np.float32)
+    if valid is None:
+        return depth, color, None
+    mask = np.zeros((n, h, w, 1), np.float32)
+    for i, (vh, vw) in enumerate(valid):
+        mask[i, :vh, :vw] = 1.0
+    return depth * mask, color * mask, mask
