@@ -131,7 +131,19 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
      launches each conv call should make, the padded narrow sites included;
  31. runs `cli train --variant zoo:<net>` (bf16, b16 p64) for two nets:
      falling losses, the unread leaves moved by the weight decay alone;
- 32. prints the card's line again, the kernels' JSON line (eight kernels),
+ 32. runs the serving matrix (`codon_tpu_torch.export_matrix --load-check`:
+     static int8 x4, x8, x16 and x4 with TTA4 and TTA8 at 463 x 370, bf16
+     compute, from checkpoints/x{4,8,16}_qat_static2.npz) into .pt2 files
+     in a temporary directory, and `cli export` of codon bf16 with a mask
+     input (480 x 384) and of codon fp32 (463 x 370) from x4_ship4; loads
+     all seven artifacts in a fresh process that cannot import the model
+     code (nor jax, codon_tpu, cv2, PIL), which answers batches of 1, 2 and
+     4 of the first batch: bitwise equal to the live forward of the same
+     configuration here, cuDNN deterministic in both (fp32, whose process
+     starts with TF32 on, within SERVE_FP32_TOL), with the same CAC and
+     quant launches request by request; prints each artifact's steady b4
+     call and b1 latency beside the live forward's;
+ 33. prints the card's line again, the kernels' JSON line (eight kernels),
      then the contract line {"ok": true, "device": {...}} as the last line
      of its output.
 
@@ -340,6 +352,14 @@ ZOO_TRAIN_NETS = ("rmcr_fuse_rmcr_rcan", "basenet_nlar")
 # variance from step 2, and its loss rises before it falls
 ZOO_TRAIN_STEPS = 12
 ZOO_WEIGHT_DECAY = 0.01
+# export and serve (phase 32): what a serving process must not need (the
+# model code, and what the card's machine lacks), the request batches each
+# artifact answers, and the fp32 artifact's bound against the live fp32
+# forward (both TF32-off; only a reordered sum could move a bit)
+SERVE_BLOCKED = ("codon_tpu_torch.models", "codon_tpu_torch.quant_ops",
+                 "codon_tpu_torch.cli", "jax", "codon_tpu", "cv2", "PIL")
+SERVE_BATCHES = (1, 2, 4)
+SERVE_FP32_TOL = 1e-6
 # file:line of each kernel's pallas_call
 REPLACES = {"cac_stats": "codon_tpu/kernels/cac.py:143",
             "spatial_logits": "codon_tpu/kernels/cac.py:193",
@@ -2626,6 +2646,237 @@ def run_batch1_step(kc, data: str):
     return {"loss": loss, "grad_norm": gnorm, "counts": counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 32: export and serve
+# ---------------------------------------------------------------------------
+
+# run by a fresh interpreter: the model code and what the card's machine
+# lacks are blocked, so the artifacts must run on the custom ops alone;
+# argv[1] names a JSON list of {name, path, requests, out}
+SERVE_RUN = r"""
+import json, sys, time
+for name in {blocked!r}:
+    sys.modules[name] = None          # any import of these now raises
+sys.path.insert(0, {repo!r})
+import torch
+torch.backends.cudnn.deterministic = True
+tf32 = torch.backends.cudnn.allow_tf32
+from codon_tpu_torch.kernels import cac as kc, quant as kq
+from codon_tpu_torch.serve import load_exported
+
+
+def time_ms(fn, warmup=2, iters=5):
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def latency_ms(fn, n=5):
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ts)[n // 2]
+
+
+results = {{}}
+for job in json.load(open(sys.argv[1])):
+    fn = load_exported(job["path"])
+    outs, counts, reqs = [], [], []
+    for args in torch.load(job["requests"]):
+        args = [t.cuda() for t in args]
+        reqs.append(args)
+        kc.reset_launches()
+        kq.reset_launches()
+        outs.append(fn(*args).cpu())
+        counts.append({{**kc.launches(), **kq.launches()}})
+    torch.save(outs, job["out"])
+    results[job["name"]] = {{"counts": counts,
+                            "steady_ms": time_ms(lambda: fn(*reqs[-1])),
+                            "b1_latency_ms": latency_ms(
+                                lambda: fn(*reqs[0])),
+                            "meta": fn.meta}}
+results["_process"] = {{
+    "tf32_default": tf32, "tf32_after": torch.backends.cudnn.allow_tf32,
+    "model_modules": sorted(m for m, mod in sys.modules.items()
+                            if mod is not None
+                            and m.startswith("codon_tpu_torch.models"))}}
+print(json.dumps(results))
+"""
+
+
+def latency_ms(fn, n: int = 5) -> float:
+    """One call's wall time on the host clock, the card synchronized
+    before and after: the median of n."""
+    import torch
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ts)[n // 2]
+
+
+def serve_configs(data: str, tmp: str, matrix):
+    """The artifacts phase 32 serves and the live forward of each: `cli
+    export` of codon bf16 with a mask input at the padded 480 x 384 (from
+    x4_ship4) and of codon fp32 at 463 x 370, and the matrix's five static
+    int8 artifacts. -> [{name, path, live fwd, requests, tol, export
+    line}]: the requests are batches 1, 2 and 4 of the first batch of the
+    scale dir (its four 463 x 370 scenes), padded with the mask for the
+    masked artifact, cropped to 463 x 370 for the others."""
+    import torch
+    from codon_tpu_torch import export_matrix
+    from codon_tpu_torch.checkpoint.native import load_npz, params_from_numpy
+    from codon_tpu_torch.core.params import BF16, FP32
+    from codon_tpu_torch.models.tta import make_tta_forward
+    from codon_tpu_torch.models.variants import get_variant
+    from codon_tpu_torch.quant_ops import Int8StaticOps
+
+    b = first_batch(data)
+    h, w = export_matrix.H, export_matrix.W
+    padded = [(b.depth[:n], b.color[:n], b.mask[:n]) for n in SERVE_BATCHES]
+    need(bool((b.mask[:, :h, :w] == 1).all()),
+         "the first batch's scenes are not 463 x 370")
+    cropped = [(b.depth[:n, :h, :w].contiguous(),
+                b.color[:n, :h, :w].contiguous()) for n in SERVE_BATCHES]
+    configs = []
+    ship4 = params_from_numpy(load_npz(CKPT), DEVICE)
+    for name, dtypes, extra, reqs, tol in (
+            ("codon_bf16_mask", BF16, ["--mask", "--height",
+                                       str(MAIN_SHAPE[1]), "--width",
+                                       str(MAIN_SHAPE[2])], padded, 0.0),
+            ("codon_fp32", FP32, ["--dtype", "fp32", "--height", str(h),
+                                  "--width", str(w)], cropped,
+             SERVE_FP32_TOL)):
+        path = os.path.join(tmp, name + ".pt2")
+        rc, said = cli_said(["export", "--ckpt", CKPT, "--out", path,
+                             "--device", DEVICE, *extra])
+        need(rc == 0, f"cli export {name} returned {rc}: {said}")
+        v = get_variant("codon", dtypes=dtypes)
+        configs.append({
+            "name": name, "path": path, "requests": reqs, "tol": tol,
+            "said": said.strip().splitlines()[-1],
+            "fwd": (lambda d, c, m=None, v=v:
+                    v.forward(ship4, d, c, mask=m))})
+    for rec in matrix:
+        tree = load_npz(export_matrix.best_ckpt(rec["scale"]))
+        scales = params_from_numpy(tree.pop("act_scales"), DEVICE)
+        params = params_from_numpy(tree, DEVICE)
+        v = get_variant("codon", dtypes=BF16)
+        ops = Int8StaticOps(scales, compute_dtype=torch.bfloat16)
+
+        def base(p, d, c, m, v=v, ops=ops):
+            return v.forward(p, d, c, mask=m, ops=ops)
+
+        if rec["tta"]:
+            base = make_tta_forward(base, transforms=rec["tta"])
+        configs.append({
+            "name": rec["artifact"][:-len(".pt2")],
+            "path": os.path.join(tmp, "matrix", rec["artifact"]),
+            "requests": cropped, "tol": 0.0,
+            "said": f"export_matrix: {rec['size_mb']:.2f} MB in "
+                    f"{rec['export_s']:.1f} s",
+            "fwd": (lambda d, c, m=None, base=base, params=params:
+                    base(params, d, c, m))})
+    return configs
+
+
+def run_serve_path(kc, kq, data: str, tmp: str):
+    """The export matrix with --load-check on the card, `cli export` of
+    two float artifacts, then every artifact loaded in a fresh process
+    that cannot import the model code, answering batches of 1, 2 and 4
+    against the live forward of the same configuration in this process
+    (cuDNN deterministic in both): bitwise (the fp32 artifact, whose
+    process starts with TF32 on, within SERVE_FP32_TOL), the same kernel
+    launches request by request, and each one's steady b4 call and b1
+    latency beside the live forward's. -> (matrix records, [row an
+    artifact], process info)."""
+    import torch
+    from codon_tpu_torch import export_matrix
+
+    matrix = export_matrix.run(os.path.join(tmp, "matrix"), load_check=True,
+                               device=DEVICE)
+    need([(r["scale"], r["tta"]) for r in matrix] == export_matrix.JOBS,
+         f"the matrix exported {[r['artifact'] for r in matrix]}")
+    configs = serve_configs(data, tmp, matrix)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        jobs = []
+        for cfg in configs:
+            outs, counts = [], []
+            for args in cfg["requests"]:
+                reset_counts(kc, kq)
+                outs.append(cfg["fwd"](*args))
+                counts.append(read_counts(kc, kq))
+            cfg.update(live=outs, live_counts=counts, live_ms=time_ms(
+                lambda: cfg["fwd"](*cfg["requests"][-1]), warmup=2,
+                iters=5), live_b1_ms=latency_ms(
+                lambda: cfg["fwd"](*cfg["requests"][0])))
+            req = os.path.join(tmp, cfg["name"] + ".requests.pt")
+            torch.save([[t.cpu() for t in args] for args in cfg["requests"]],
+                       req)
+            jobs.append({"name": cfg["name"], "path": cfg["path"],
+                         "requests": req,
+                         "out": os.path.join(tmp, cfg["name"] + ".out.pt")})
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    job_file = os.path.join(tmp, "serve_jobs.json")
+    with open(job_file, "w") as f:
+        json.dump(jobs, f)
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, "-c", SERVE_RUN.format(blocked=SERVE_BLOCKED,
+                                                repo=REPO), job_file],
+        capture_output=True, text=True, timeout=600)
+    need(res.returncode == 0, f"the serving process failed "
+         f"({res.returncode}):\n{res.stderr[-4000:]}")
+    served = json.loads(res.stdout.strip().splitlines()[-1])
+    proc = served.pop("_process")
+    proc["wall_s"] = time.time() - t0
+    need(not proc["model_modules"], f"the serving process imported "
+         f"{proc['model_modules']}")
+    rows = []
+    for cfg, job in zip(configs, jobs):
+        got = torch.load(job["out"])
+        s = served[cfg["name"]]
+        diffs = []
+        for n, live, out in zip(SERVE_BATCHES, cfg["live"], got):
+            need(tuple(out.shape) == tuple(live.shape)
+                 and tuple(out.shape[:1]) == (n,)
+                 and bool(torch.isfinite(out).all()),
+                 f"{cfg['name']} b{n}: output {tuple(out.shape)}, live "
+                 f"{tuple(live.shape)}")
+            diffs.append(float((out - live.cpu()).abs().max()))
+        need(max(diffs) <= cfg["tol"], f"{cfg['name']}: artifact vs live "
+             f"max |d| {diffs} at b{SERVE_BATCHES} (bound {cfg['tol']})")
+        need(s["counts"] == cfg["live_counts"], f"{cfg['name']}: launches "
+             f"in the serving process {s['counts']}, live "
+             f"{cfg['live_counts']}")
+        rows.append({"name": cfg["name"], "said": cfg["said"],
+                     "max_abs_diff": max(diffs), "tol": cfg["tol"],
+                     "counts": dict(zip(SERVE_BATCHES, s["counts"])),
+                     "artifact_ms": s["steady_ms"],
+                     "live_ms": cfg["live_ms"],
+                     "artifact_b1_ms": s["b1_latency_ms"],
+                     "live_b1_ms": cfg["live_b1_ms"], "meta": s["meta"]})
+    return matrix, rows, proc
+
+
 def main() -> int:
     try:
         import torch
@@ -3085,7 +3336,32 @@ def main() -> int:
                 f"{r['counts']}")
         say(f"zoo phases: {time.time() - t0:.1f} s")
 
-    # 32. results
+        # 32. export and serve: the matrix, cli export, and every artifact
+        # in a process without the model code
+        t0 = time.time()
+        matrix, serve_rows, serve_proc = run_serve_path(kc, kq, data, tmp)
+        for r in matrix:
+            say(f"export matrix {r['artifact']}: {r['size_mb']:.2f} MB, "
+                f"export {r['export_s']:.2f} s, load {r['load_s']:.3f} s, "
+                f"first call {r['first_call_s']:.3f} s, steady call "
+                f"{r['steady_call_s'] * 1e3:.2f} ms (b1, {r['card']})")
+        for r in serve_rows:
+            say(f"serve {r['name']} ({r['said']}): b1/b2/b4 from a process "
+                f"without the model code, vs the live forward max |d| "
+                f"{r['max_abs_diff']:.3e} (bitwise "
+                f"{r['max_abs_diff'] == 0.0}; bound {r['tol']}); launches "
+                f"as live {r['counts'][4]} at b4; steady b4 call artifact "
+                f"{r['artifact_ms']:.3f} ms, live {r['live_ms']:.3f} ms; "
+                f"b1 latency (host clock, median of 5) artifact "
+                f"{r['artifact_b1_ms']:.3f} ms, live {r['live_b1_ms']:.3f} "
+                f"ms ({card})")
+        say(f"serve process: TF32 on by default {serve_proc['tf32_default']}"
+            f", after the calls {serve_proc['tf32_after']}; model modules "
+            f"imported {serve_proc['model_modules']}; "
+            f"{serve_proc['wall_s']:.1f} s wall")
+        say(f"serve phase: {time.time() - t0:.1f} s")
+
+    # 33. results
     int8_paths = {"eval_int8": i8_counts,
                   "eval_int8_tta8_device_metrics": i8t_counts,
                   "eval_int8_ensemble2_tta": i8e_counts,
@@ -3102,6 +3378,11 @@ def main() -> int:
                  **{f"eval_zoo_{n}_tta8_device_metrics": v[2]
                     for n, v in zev.items()},
                  **{f"train_zoo_{n}": r["counts"] for n, r in ztr.items()}}
+    # the artifacts' launches in the serving process, batches 1 + 2 + 4
+    serve_paths = {f"serve_{r['name']}": {k: sum(c[k] for c in
+                                                 r["counts"].values())
+                                          for k in r["counts"][4]}
+                   for r in serve_rows}
     kernels = []
     for name in ("cac_stats", "spatial_logits", "cac_apply"):
         t = timings[name]
@@ -3117,7 +3398,9 @@ def main() -> int:
                                  **{p: c[name] for p, c in
                                     int8_paths.items()},
                                  **{p: c[name] for p, c in
-                                    cac_paths.items()}},
+                                    cac_paths.items()},
+                                 **{p: c[name] for p, c in
+                                    serve_paths.items()}},
             **({"pitched": {"by_shape": ptimes[name],
                             "max_abs_err": max(r["max_abs_err"]
                                                for r in pchecks[name])}}
@@ -3153,7 +3436,10 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "codon_tpu_torch/kernels/csrc/quant.cu",
             "replaces": REPLACES[name], "launches": i8_counts[name],
-            "launches_by_path": {p: c[name] for p, c in int8_paths.items()},
+            "launches_by_path": {**{p: c[name] for p, c in
+                                    int8_paths.items()},
+                                 **{p: c[name] for p, c in
+                                    serve_paths.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in
                                qchecks[name] + wchecks[name]),
             "windowed": {"grouped_sites": wtimes, "max_abs_err": max(

@@ -16,6 +16,9 @@ train    train a model on patches of a scale dir (shipped input_depth/ or
          --ema, step checkpoints with resume (--orbax-dir)
 golden   score a scale dir's archived output/ PNGs against input_label/
 convert  the reference's torch .pth -> native .npz checkpoint
+export   the forward (weights, int8 scales, TTA, mask input, scale plane
+         baked in) as a torch.export serving artifact with a symbolic
+         batch; run it with `serve.load_exported`
 info     the device, a variant's parameter count, the variant registry
 
 The model runs on the card (`--device cuda`, the default) unless the caller
@@ -190,6 +193,38 @@ def _build_argparser() -> argparse.ArgumentParser:
     c.add_argument("--npz", required=True)
     c.add_argument("--no-dead-heads", action="store_true",
                    help="X16-style checkpoints without attention_{c5,s5}")
+
+    x = sub.add_parser("export",
+                       help="export the forward (weights baked in) as a "
+                            "torch.export serving artifact, batch-"
+                            "symbolic; platform = --device")
+    x.add_argument("--ckpt", required=True)
+    x.add_argument("--out", required=True)
+    x.add_argument("--variant", default="codon")
+    x.add_argument("--height", type=int, default=370)
+    x.add_argument("--width", type=int, default=463)
+    x.add_argument("--dtype", choices=("bf16", "fp32", "int8"),
+                   default="bf16")
+    x.add_argument("--mask", action="store_true",
+                   help="artifact takes a validity-mask input "
+                        "(padded-batch serving)")
+    x.add_argument("--tta", action="store_true",
+                   help="bake the 4-flip self-ensemble into the artifact "
+                        "(batched)")
+    x.add_argument("--tta8", action="store_true",
+                   help="bake the full 8-transform dihedral self-ensemble "
+                        "(quality-flagship serving config when combined "
+                        "with --dtype int8); implies --tta")
+    x.add_argument("--scale", type=int, choices=(4, 8, 16), default=4,
+                   help="upsampling factor baked into --scale-cond "
+                        "artifacts")
+    x.add_argument("--scale-cond", action="store_true",
+                   help="bake the constant scale/16 conditioning plane "
+                        "into the artifact (codon_sc variants; callers "
+                        "still feed 1-channel depth)")
+    x.add_argument("--device", default="cuda",
+                   help="torch device the artifact is traced for and runs "
+                        "on; 'cpu' for the CPU")
 
     i = sub.add_parser("info", help="model and device summary")
     i.add_argument("--variant", default="codon")
@@ -880,6 +915,37 @@ def cmd_convert(args) -> int:
     return 0
 
 
+def cmd_export(args) -> int:
+    from codon_tpu_torch.core.params import DTYPE_POLICIES
+    from codon_tpu_torch.models.variants import get_variant
+    from codon_tpu_torch.serve import export_forward
+
+    device = _device(args.device)
+    variant = get_variant(args.variant, dtypes=DTYPE_POLICIES[args.dtype])
+    params, act_scales = _load_params(args.ckpt, variant, device)
+    ops = None
+    if args.dtype == "int8":
+        from codon_tpu_torch.quant_ops import Int8Ops, Int8StaticOps
+        if act_scales is not None:
+            ops = Int8StaticOps(
+                act_scales, compute_dtype=variant.cfg.dtypes.compute_dtype)
+            print(f"int8: static scales from checkpoint "
+                  f"({len(act_scales)} sites) baked into the artifact")
+        else:
+            ops = Int8Ops()
+            print("int8: dynamic per-sample scales")
+    tta_n = 8 if args.tta8 else 4 if args.tta else 0
+    n = export_forward(variant, params, (args.height, args.width), args.out,
+                       ops=ops, mask=args.mask, tta=tta_n,
+                       scale_cond=(args.scale / 16.0 if args.scale_cond
+                                   else None))
+    print(f"exported {args.variant} {args.width}x{args.height} "
+          f"[{args.dtype}{f'+tta{tta_n}' if tta_n else ''}] "
+          f"for platform '{device.type}' "
+          f"-> {args.out} ({n / 1e6:.1f} MB)")
+    return 0
+
+
 def cmd_info(args) -> int:
     from codon_tpu_torch.core.params import param_count
     from codon_tpu_torch.models.variants import get_variant, list_variants
@@ -898,7 +964,8 @@ def cmd_info(args) -> int:
 def main(argv=None) -> int:
     args = _build_argparser().parse_args(argv)
     return {"eval": cmd_eval, "train": cmd_train, "golden": cmd_golden,
-            "convert": cmd_convert, "info": cmd_info}[args.cmd](args)
+            "convert": cmd_convert, "export": cmd_export,
+            "info": cmd_info}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -10,10 +10,14 @@ Counterparts of the three Pallas TPU kernels of `codon_tpu.kernels.cac`:
   cac_apply       ad = channel gate x sigmoid(logits); both towers gated and
                   the long skip added: 4 reads + 2 writes in one pass
 
-The CUDA sources are in `csrc/cac.cu`. Each wrapper takes the plain version
-when its tensors lie on the CPU, and on a CUDA tensor launches the kernel or
-raises; it never falls back. Each wrapper counts its kernel launches in a
-plain integer attribute, `<wrapper>.launches`.
+The CUDA sources are in `csrc/cac.cu`. Each wrapper dispatches through its
+custom op (`kernels.ops`: `codon::cac_stats`, `codon::spatial_logits`,
+`codon::cac_apply`, `codon::cac_apply_into`), which `torch.export` records
+in an exported program: the op takes the plain version when its tensors
+lie on the CPU, and on a CUDA tensor runs the launch code below
+(`_<wrapper>_cuda`), which launches the kernel or raises; it never falls
+back. The launch code counts each kernel launch in a plain integer
+attribute of the wrapper, `<wrapper>.launches`.
 
 Layout: NHWC, C innermost; activations float32, bfloat16 or float16;
 sums, maxes and the gate in float32. A tower may be a channel window of a
@@ -102,13 +106,12 @@ def cac_apply_plain(out, out_c, inputs, inputs_c, gate, sp_logits,
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _on_cpu(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
+def _check_device(t: torch.Tensor) -> None:
+    """Raise unless `t` lies on the CPU or a CUDA card, the two devices
+    the ops have an implementation for."""
+    if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"CAC kernels take CPU or CUDA tensors, got "
                          f"{t.device}")
-    return False
 
 
 def _need(cond: bool, what: str, *args) -> None:
@@ -171,8 +174,12 @@ def _stream(t):
 def cac_stats(out, out_c, mask=None):
     """Kernel-backed `cac_stats_plain`. mask: optional (N,H,W,1), same dtype.
     The towers may be channel windows of one pitch (`tower_pitch`)."""
-    if _on_cpu(out):
-        return cac_stats_plain(out, out_c, mask)
+    _check_device(out)
+    return torch.ops.codon.cac_stats(out, out_c, mask)
+
+
+def _cac_stats_cuda(out, out_c, mask):
+    """The CUDA implementation of `codon::cac_stats`."""
     pitch = _check_towers(out, out_c)
     n, h, w, c = out.shape
     if mask is not None:
@@ -201,8 +208,12 @@ def cac_stats(out, out_c, mask=None):
 def spatial_logits(cmax, cmean, sp_w):
     """Kernel-backed `spatial_logits_plain`. sp_w: (5, 5, 2, 1) on the card,
     the 5x5 spatial gate of every variant; any odd k on the CPU."""
-    if _on_cpu(cmax):
-        return spatial_logits_plain(cmax, cmean, sp_w)
+    _check_device(cmax)
+    return torch.ops.codon.spatial_logits(cmax, cmean, sp_w)
+
+
+def _spatial_logits_cuda(cmax, cmean, sp_w):
+    """The CUDA implementation of `codon::spatial_logits`."""
     _need(cmax.dim() == 3 and cmax.dtype in _DTYPE_CODES,
           "cmax: expected (N,H,W) activations, got {} {}",
           tuple(cmax.shape), cmax.dtype)
@@ -228,10 +239,20 @@ def spatial_logits(cmax, cmean, sp_w):
 def cac_apply(out, out_c, inputs, inputs_c, gate, sp_logits, dst=None):
     """Kernel-backed `cac_apply_plain` -> (new_out, new_out_c). The four
     inputs may be channel windows of one pitch, and dst a pair of windows
-    of another (both written in the one pass)."""
-    if _on_cpu(out):
-        return cac_apply_plain(out, out_c, inputs, inputs_c, gate, sp_logits,
-                               dst)
+    of another (both written in the one pass, `codon::cac_apply_into`)."""
+    _check_device(out)
+    if dst is None:
+        return torch.ops.codon.cac_apply(out, out_c, inputs, inputs_c, gate,
+                                         sp_logits)
+    torch.ops.codon.cac_apply_into(out, out_c, inputs, inputs_c, gate,
+                                   sp_logits, *dst)
+    return tuple(dst)
+
+
+def _cac_apply_cuda(out, out_c, inputs, inputs_c, gate, sp_logits,
+                    dst=None):
+    """The CUDA implementation of `codon::cac_apply` and, with dst,
+    `codon::cac_apply_into`."""
     in_pitch = _check_towers(out, out_c, inputs, inputs_c)
     n, h, w, c = out.shape
     _check_plane(gate, (n, 1, c), torch.float32, out.device, "gate")

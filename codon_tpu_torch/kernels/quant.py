@@ -33,8 +33,12 @@ bits as the unpadded conv, and the site still runs the three steps.
 
 The CUDA sources are in `csrc/quant.cu`. Each wrapper takes the plain
 version when its tensors lie on the CPU, and on a CUDA tensor launches the
-kernel or raises; it never falls back. Each counts its launches in a plain
-integer attribute, `<wrapper>.launches` (`int8_gemm` its GEMM calls on the
+kernel or raises; it never falls back. `int8_conv` dispatches through the
+custom op `codon::int8_conv` (`kernels.ops`: the whole composed conv in
+one op) and the static handoffs' quantize through `codon::quant_im2col`,
+which `torch.export` records in an exported program with the batch left
+symbolic. The launch code counts each launch in a plain integer attribute
+of the wrapper, `<wrapper>.launches` (`int8_gemm` its GEMM calls on the
 card).
 """
 from __future__ import annotations
@@ -139,9 +143,16 @@ def quant_im2col(x, k, sc=None, sx=None, c0=0, cg=None):
     multiples of 16 and x starts on a 16-byte boundary. Float input takes
     two kernels (quantize, then gather), counted as one launch of the
     wrapper; at k = 1 over all of C the patches are the quantized x
-    itself."""
+    itself. Inside `codon::int8_conv` it is called directly; the int8
+    handoffs reach it through the op `codon::quant_im2col`."""
     if _on_cpu(x):
         return quant_im2col_plain(x, k, sc, sx, c0, cg)
+    return _quant_im2col_cuda(x, k, sc, sx, c0, cg)
+
+
+def _quant_im2col_cuda(x, k, sc, sx, c0, cg):
+    """`quant_im2col` on the card, the CUDA implementation of
+    `codon::quant_im2col`."""
     _need(x.dim() == 4 and x.dtype in _DTYPE_CODES and x.is_contiguous(),
           "x: expected contiguous NHWC float32, bfloat16, float16 or int8, "
           "got {} {}", x.dtype, tuple(x.shape))
@@ -300,8 +311,9 @@ def int8_conv(x, w8, sw, dtype, *, sc=None, sx=None, mask=None, impl=None,
     `quant_im2col_plain`. w8 (k,k,C/groups,C_out) int8 HWIO, k odd, the
     output channels blocked by group; sw (C_out,) float32 its dequant
     scale; dtype the output's. mask (N,H,W,1) or None. impl: None takes
-    the kernels (their plain versions on CPU tensors); "plain" takes the
-    plain versions on any device, the card's reference. With groups > 1
+    the kernels through the custom op `codon::int8_conv` (their plain
+    versions on CPU tensors); "plain" takes the plain versions on any
+    device, the card's reference. With groups > 1
     the input is quantized once (at k = 1, over all C), then each group is
     gathered, multiplied and dequantized into its output window; on the
     card every group's widths must meet the kernels' alignment (C/groups a
@@ -312,6 +324,18 @@ def int8_conv(x, w8, sw, dtype, *, sc=None, sx=None, mask=None, impl=None,
     """
     if impl not in (None, "plain"):
         raise ValueError(f"impl must be None or 'plain', got {impl!r}")
+    if impl == "plain":
+        return composed_int8_conv(x, w8, sw, dtype, sc, sx, mask, groups,
+                                  plain=True)
+    _on_cpu(x)
+    return torch.ops.codon.int8_conv(x, w8, sw, dtype, sc, sx, mask, groups)
+
+
+def composed_int8_conv(x, w8, sw, dtype, sc, sx, mask, groups, plain):
+    """`int8_conv` as three steps over blocks of images: the plain
+    versions (plain=True), or the wrappers (the implementation of
+    `codon::int8_conv`: the kernels on the card, the plain versions on the
+    CPU)."""
     n, h, w, c = x.shape
     k = w8.shape[0]
     cg = c // groups
@@ -324,13 +348,12 @@ def int8_conv(x, w8, sw, dtype, *, sc=None, sx=None, mask=None, impl=None,
     cog = co // groups
     if cg % _VEC or cog % _CO_ALIGN:
         return _padded_int8_conv(x, w8, sw, dtype, sc=sc, sx=sx, mask=mask,
-                                 impl=impl, groups=groups)
+                                 plain=plain, groups=groups)
     kk = k * k * cg
     # column-major, as int8_gemm hands it to cuBLASLt; one (K, C_out/G)
     # matrix a group
     wmats = [w8[..., g * cog:(g + 1) * cog].reshape(kk, cog).t()
              .contiguous().t() for g in range(groups)]
-    plain = impl == "plain"
     im2col = quant_im2col_plain if plain else quant_im2col
     epilogue = dequant_epilogue_plain if plain else dequant_epilogue
     if mask is not None:
@@ -372,7 +395,7 @@ def _pad_groups(t, groups, width, value=0):
         *t.shape[:-1], groups * width).contiguous()
 
 
-def _padded_int8_conv(x, w8, sw, dtype, *, sc, sx, mask, impl, groups):
+def _padded_int8_conv(x, w8, sw, dtype, *, sc, sx, mask, plain, groups):
     """`int8_conv` of a narrow site, on group widths padded to the kernels'
     (input channels to a multiple of 16, output channels to one of 8): zero
     input codes, unit scales on the padded channels, zero weights on the
@@ -387,8 +410,8 @@ def _padded_int8_conv(x, w8, sw, dtype, *, sc, sx, mask, impl, groups):
                (0, cogp - cog, 0, 0, 0, cgp - cg))
     wp = wp.reshape(k, k, cgp, groups * cogp)
     swp = _pad_groups(sw, groups, cogp, 1.0)
-    out = int8_conv(xp, wp, swp, dtype, sc=scp, sx=sx, mask=mask, impl=impl,
-                    groups=groups)
+    out = composed_int8_conv(xp, wp, swp, dtype, scp, sx, mask, groups,
+                             plain)
     if cogp == cog:
         return out
     return out.reshape(*out.shape[:3], groups, cogp)[..., :cog].reshape(

@@ -44,8 +44,7 @@ import numpy as np
 import torch
 
 from codon_tpu_torch.core.ops import TorchOps
-from codon_tpu_torch.kernels.quant import (int8_conv, quant_im2col,
-                                           quantize_plain)
+from codon_tpu_torch.kernels.quant import int8_conv, quantize_plain
 
 # Ops.roundtrip (elementwise-consumer handoff) site names
 HANDOFF_SITES = ("gate_d", "gate_c", "stem_d", "stem_c", "fuse_r")
@@ -126,10 +125,11 @@ def _fold_weights(w, sc, groups=1):
 
 def quantize_static(x, sc):
     """Per-channel int8 quantization of an NHWC x on the static grid sc
-    (C,): `quant_im2col` at k = 1, whose patches are x's codes pixel by
-    pixel (the quantize kernel on the card, its plain version on the
-    CPU)."""
-    return quant_im2col(x.contiguous(), 1, sc).view(x.shape)
+    (C,): `quant_im2col` at k = 1 through the custom op
+    `codon::quant_im2col`, whose patches are x's codes pixel by pixel (the
+    quantize kernel on the card, its plain version on the CPU)."""
+    return torch.ops.codon.quant_im2col(x.contiguous(), 1, sc, None, 0,
+                                        None).view(x.shape)
 
 
 def _int8_conv(x, w, *, mask, sx, impl, groups=1):

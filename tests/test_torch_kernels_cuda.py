@@ -17,7 +17,10 @@ compute the identity and are held to it bitwise, with a sentinel around
 the output that must stay untouched. The int8 conv's kernels, quant_im2col
 and dequant_epilogue, round as their plain versions do and are held to
 them bitwise, alone, composed over image blocks, at the zoo's narrow
-sites (zero-padded to their widths), and in whole int8 forwards.
+sites (zero-padded to their widths), and in whole int8 forwards. The
+custom ops the wrappers dispatch through pass `torch.library.opcheck` on
+CUDA inputs, and a `torch.export` artifact traced on the card equals the
+live forward bitwise (cuDNN deterministic) with the same launches.
 """
 import dataclasses
 import os
@@ -29,9 +32,9 @@ import torch
 from codon_tpu_torch.kernels import cac as tcac
 from codon_tpu_torch.models import codon_net as tnet
 
-from torch_port_common import (C, CKPT_DIR, H, N, W, cac_mask,  # noqa: F401
-                               cac_towers, cac_weights, needs_cuda,
-                               one_torch_thread, to_np, to_torch)
+from torch_port_common import (C, CKPT_DIR, H, N, OP_CASES, W,  # noqa: F401
+                               cac_mask, cac_towers, cac_weights, needs_cuda,
+                               one_torch_thread, op_case, to_np, to_torch)
 
 
 def _close(got, want, atol, rtol):
@@ -1018,3 +1021,73 @@ def test_cuda_zoo_forward_matches_cpu(name):
     finally:
         torch.backends.cudnn.deterministic = saved
     assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", OP_CASES)
+@needs_cuda
+def test_cuda_custom_ops_pass_opcheck(case, dtype):
+    """The CUDA implementation of each codon:: op against its fake one
+    (shapes, dtypes, strides, a symbolic batch) and its schema."""
+    op, args = op_case(case, device="cuda", dtype=dtype)
+    result = torch.library.opcheck(getattr(torch.ops.codon, op), args)
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+@pytest.mark.parametrize("config", ["bf16-mask", "int8-static-tta4"])
+@needs_cuda
+def test_cuda_exported_forward_equals_live(config, tmp_path):
+    """codon on x4_ship4 (bf16, mask input) and on x4_ship4_qat_static
+    (static int8, TTA4), exported on the card at batch 2 and run at 1 and
+    3: bitwise equal to the live forward, with the same CAC and quant
+    launches."""
+    from codon_tpu_torch.checkpoint.native import load_npz, params_from_numpy
+    from codon_tpu_torch.core.params import BF16
+    from codon_tpu_torch.kernels import quant as kq
+    from codon_tpu_torch.models.tta import make_tta_forward
+    from codon_tpu_torch.models.variants import get_variant
+    from codon_tpu_torch.quant_ops import Int8StaticOps
+    from codon_tpu_torch.serve import export_forward, load_exported
+    v = get_variant("codon", BF16)
+    if config == "bf16-mask":
+        tree, ops, tta = load_npz(os.path.join(CKPT_DIR, "x4_ship4.npz")), \
+            None, 0
+    else:
+        tree = load_npz(os.path.join(CKPT_DIR, "x4_ship4_qat_static.npz"))
+        ops = Int8StaticOps(params_from_numpy(tree.pop("act_scales"),
+                                              "cuda"),
+                            compute_dtype=torch.bfloat16)
+        tta = 4
+    params = params_from_numpy(tree, "cuda")
+    path = str(tmp_path / "m.pt2")
+    export_forward(v, params, (H, W), path, ops=ops, mask=True, tta=tta)
+    fn = load_exported(path)
+    assert fn.meta["platform"] == "cuda"
+
+    def live(d, c, m):
+        fwd = lambda p, a, b, mk: v.forward(p, a, b, mask=mk, ops=ops)  # noqa: E731
+        return (make_tta_forward(fwd) if tta else fwd)(params, d, c, m)
+
+    rng = np.random.RandomState(200)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for b in (1, 3):
+            m = np.ones((b, H, W, 1), np.float32)
+            m[-1, 20:] = 0
+            d, c = (to_torch(rng.rand(b, H, W, 1).astype(np.float32) * m,
+                             "cuda") for _ in range(2))
+            m = to_torch(m, "cuda")
+            counts = []
+            outs = []
+            for run in (live, fn):
+                tcac.reset_launches()
+                kq.reset_launches()
+                outs.append(run(d, c, m))
+                counts.append({**tcac.launches(), **kq.launches()})
+            assert counts[0] == counts[1]
+            assert counts[0]["cac_stats"] == 5
+            assert torch.equal(outs[0], outs[1])
+    finally:
+        torch.backends.cudnn.deterministic = saved

@@ -135,3 +135,73 @@ def zoo_case(case, seed=0):
     for i, (vh, vw) in enumerate(valid):
         mask[i, :vh, :vw] = 1.0
     return depth * mask, color * mask, mask
+
+
+# The custom ops of `codon_tpu_torch.kernels.ops`, each on small inputs
+# that the CUDA kernels take too (C = 64 towers, their pitched halves of a
+# 2C tensor, 16-channel quant windows): name -> (op name, args).
+OP_CASES = ("cac_stats", "cac_stats_unmasked", "cac_stats_pitched",
+            "spatial_logits", "cac_apply", "cac_apply_pitched",
+            "cac_apply_into_pitched", "quant_im2col_static",
+            "quant_im2col_dynamic", "quant_im2col_window", "int8_conv",
+            "int8_conv_grouped", "int8_conv_narrow")
+
+
+def op_case(name, device="cpu", dtype=torch.float32, seed=0):
+    """-> (op name in torch.ops.codon, args) of one OP_CASES case."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(*shape, dt=dtype, scale=1.0):
+        t = torch.randn(shape, generator=g) * scale
+        return t.to(device=device, dtype=dt)
+
+    def rand_int8(*shape):
+        return torch.randint(-127, 128, shape, generator=g,
+                             dtype=torch.int8).to(device)
+
+    n, h, w = 2, 9, 7
+    mask = torch.ones((n, h, w, 1))
+    mask[1, 5:] = 0
+    mask = mask.to(device=device, dtype=dtype)
+    towers = [rand(n, h, w, C) * mask for _ in range(4)]
+    wide = [rand(n, h, w, 2 * C) * mask for _ in range(2)]
+    halves = [wide[0][..., :C], wide[0][..., C:], wide[1][..., :C],
+              wide[1][..., C:]]
+    gate = torch.rand((n, 1, C), generator=g).to(device)
+    logits = rand(n, h, w)
+    x = rand(n, h, w, 32, scale=3.0)
+    sc = (torch.rand(32, generator=g) * 0.05 + 0.01).to(device)
+    sx = (torch.rand(n, generator=g) * 0.05 + 0.01).to(device)
+    sw = (torch.rand(32, generator=g) * 1e-3).to(device)
+    cases = {
+        "cac_stats": ("cac_stats", (towers[0], towers[1], mask)),
+        "cac_stats_unmasked": ("cac_stats", (towers[0], towers[1], None)),
+        "cac_stats_pitched": ("cac_stats", (halves[0], halves[1], mask)),
+        "spatial_logits": ("spatial_logits",
+                           (rand(n, h, w), rand(n, h, w),
+                            rand(5, 5, 2, 1, dt=torch.float32))),
+        "cac_apply": ("cac_apply", (*towers, gate, logits)),
+        "cac_apply_pitched": ("cac_apply", (*halves, gate, logits)),
+        "cac_apply_into_pitched": (
+            "cac_apply_into",
+            (*halves, gate, logits,
+             *(lambda t: (t[..., :C], t[..., C:]))(
+                 torch.zeros((n, h, w, 2 * C), dtype=dtype,
+                             device=device)))),
+        "quant_im2col_static": ("quant_im2col", (x, 3, sc, None, 0, None)),
+        "quant_im2col_dynamic": ("quant_im2col", (x, 1, None, sx, 0, None)),
+        "quant_im2col_window": ("quant_im2col",
+                                (rand_int8(n, h, w, 32), 5, None, None, 16,
+                                 16)),
+        "int8_conv": ("int8_conv", (x, rand_int8(3, 3, 32, 32), sw, dtype,
+                                    sc, None, mask, 1)),
+        "int8_conv_grouped": ("int8_conv",
+                              (rand_int8(n, h, w, 32),
+                               rand_int8(5, 5, 16, 32), sw, dtype, None,
+                               None, mask, 2)),
+        # a zoo-like narrow site: 8 input channels a group, zero-padded
+        "int8_conv_narrow": ("int8_conv",
+                             (x, rand_int8(1, 1, 8, 32), sw, dtype, None,
+                              sx, None, 4)),
+    }
+    return cases[name]
