@@ -143,9 +143,37 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
      starts with TF32 on, within SERVE_FP32_TOL), with the same CAC and
      quant launches request by request; prints each artifact's steady b4
      call and b1 latency beside the live forward's;
- 33. prints the card's line again, the kernels' JSON line (eight kernels),
-     then the contract line {"ok": true, "device": {...}} as the last line
-     of its output.
+ 33. the mesh (`codon_tpu_torch.parallel`), 4 gloo ranks sharing the one
+     card, this process rank 0: `cli eval --tile-devices 2 --dp-devices 2
+     --dist-backend gloo --tta8 --device-metrics` in bf16 and static int8
+     against the single-device evals of phases 9 and 14 (each image's PNG
+     within MESH_CLI_PNG, bf16 and int8 each in its own class, RMSE within
+     the RMS of the PNGs' difference, SSIM within 0.01; the cli's mesh
+     banner, and from its --json summary every rank's CAC and quant
+     launches and collective calls); `make_tiled_forward` of x4_ship4
+     on the first batch (b4, 384 x 480, masked) at dp x sp = 1x2, 1x4,
+     2x1 and 2x2, bf16 (in the bf16 class of `mesh_bf16_class`) and fp32
+     (MESH_FP32_TOL) against the single-device forward, fp32 kernels
+     against the plain stage at 1x4 (FWD_TOL); static int8
+     (x4_ship4_qat_static, scales through scales_factory) and dynamic
+     (x4_ship4_qat, Int8ShardedOps) at 2x2 and 1x4 against unsharded, in
+     the flip class; codon_fused and rmcr_fuse_rmcr at 1x2; one 1480 x
+     1852 frame (the first scene, 4x in each axis), b1 bf16, at 1x2
+     against untiled, and `tile_stitch_infer` on it (mean |d| < 5e-3);
+     each with every rank's CAC and quant launches (counters set to 0 just
+     before, read just after, from every rank) and rank 0's collective
+     tallies, and its wall time (CUDA events on rank 0) beside the
+     single-device forward's: ranks sharing one H100 over gloo, not
+     multi-GPU speed; NCCL's refusal of 2 ranks on 1 card, and its
+     one-rank group running the sharded forward; the haloed quant_im2col
+     and int8_conv against their plain versions at the sp = 2 shard's
+     sites (int8 input, and bf16 on a per-image scale; bitwise), and the
+     two routes of a haloed int8 conv (the gather's halo rows, or SAME +
+     crop), timed;
+ 34. prints the card's line again, the kernels' JSON line (eight kernels;
+     each CAC and quant kernel's launches_by_path with the mesh paths, by
+     rank), then the contract line {"ok": true, "device": {...}} as the
+     last line of its output.
 
 Phase 3 holds the CAC kernels at the training path's shape too (16 x 64 x
 64, every pixel valid). It also holds cac_stats and cac_apply against
@@ -2877,6 +2905,444 @@ def run_serve_path(kc, kq, data: str, tmp: str):
     return matrix, rows, proc
 
 
+# ---------------------------------------------------------------------------
+# phase 33: the mesh (multi-rank inference, `codon_tpu_torch.parallel`)
+# ---------------------------------------------------------------------------
+
+# the mesh's ranks: 4 gloo ranks sharing the one card; the (dp, sp) forms
+MESH_WORLD = 4
+MESH_FORMS = ((1, 2), (1, 4), (2, 1), (2, 2))
+# float32 sharded against single-device (TF32 off): the tolerance of
+# tests/test_parallel.py, elementwise atol / rtol (a shard's convs and the
+# all-reduced pools sum in another order)
+MESH_FP32_TOL = (2e-4, 1e-3)
+# one large frame, 4x the Middlebury scene in each axis, and JAX's bound
+# on tile-and-stitch against the untiled forward (tests/test_parallel.py)
+LARGE_FRAME = (1480, 1852)
+STITCH_TILE = 512           # tile_stitch_infer's default tile height
+STITCH_MEAN_TOL = 5e-3
+MESH_TIME_ITERS = 3
+# the k > 1 quantized convs whose input is float in the static int8
+# forward (conv_input(_c), conv3/conv6 x 5, conv7, conv10 x 3, conv11): on
+# a shard each quantizes its rows first (a quant_im2col call at k = 1) so
+# the halo rows travel as int8 codes, then gathers (a second call): the
+# two kernels of one unsharded call, in two calls
+INT8_FLOAT_STENCIL_CALLS = 17
+# the two routes of a haloed int8 conv timed against each other: (k, C) of
+# the b4 forward's sites at sp = 2 (a shard of 192 rows)
+HALO_ROUTE_SITES = ((5, 128), (5, 64), (3, 128))
+# the mesh cli eval against the single-device eval of the same flags, in
+# uint8 PNG levels (mean, max |d|) per image. bf16: the shards and ranks
+# sum in another order, which moves an output by a bf16 ulp or two, a
+# level where it lies at a rounding boundary: a few pixels in a hundred at
+# most, and no more than 3 levels (the H100 read 0.0013 / 1, the CPU at
+# 37 x 45 0.025 / 1). int8: the static flip class of
+# tests/test_torch_parallel_cli.py, 255 x 0.01 + 1 / 255 x 0.1 + 1 (the
+# H100 read 0.0052 / 2)
+MESH_CLI_PNG = {"bf16": (0.05, 3.0), "int8": (255 * 0.01 + 1, 255 * 0.1 + 1)}
+
+
+def mesh_bf16_class(got, single, fp32):
+    """(mean, max |sharded - single|, mean, max |single - fp32|) of a bf16
+    forward. The class: the sharded bf16 forward no farther from the
+    single-device bf16 forward, in mean, than that one is from float32,
+    and in max within twice its max (sharding moves sums by an ulp as bf16
+    rounding does, and adds no error class of its own)."""
+    d, e = (got - single).abs(), (single - fp32).abs()
+    r = (float(d.mean()), float(d.max()), float(e.mean()), float(e.max()))
+    need(r[0] <= r[2] and r[1] <= 2 * r[3],
+         f"bf16 sharded vs single mean {r[0]:.3e} max {r[1]:.3e}: beyond "
+         f"the bf16-vs-fp32 class, mean {r[2]:.3e} max 2 x {r[3]:.3e}")
+    return r
+
+
+def mesh_fp32_close(got, want, what):
+    atol, rtol = MESH_FP32_TOL
+    d = (got - want).abs()
+    bad = int((d > atol + rtol * want.abs()).sum())
+    need(bad == 0, f"{what}: {bad} values beyond atol {atol} / rtol {rtol}, "
+         f"max |d| {float(d.max()):.3e}")
+    return float(d.max())
+
+
+def mesh_int8_launches(kq, n, h, w, static):
+    """(quant_im2col, dequant_epilogue) launches of one int8 forward on a
+    rank whose shard is n images of h x w: a block of images at each conv
+    call, as `int8_launches`; static scales add the handoffs and the
+    shard's quantize before each float-input stencil conv."""
+    epi = int8_launches(kq, n, h, w)
+    if not static:
+        return epi, epi
+    return epi + INT8_HANDOFFS + INT8_FLOAT_STENCIL_CALLS, epi
+
+
+def need_mesh_counts(counts, dp, sp, cac_want, quant_want, what):
+    """Every rank of the dp x sp mesh launched each CAC kernel cac_want
+    times and, when quant_want is given, quant_im2col / dequant_epilogue
+    those; ranks outside the mesh launched nothing."""
+    for rank, c in enumerate(counts):
+        inside = rank < dp * sp
+        for name in ("cac_stats", "spatial_logits", "cac_apply"):
+            want = cac_want if inside else 0
+            need(c["cac"][name] == want, f"{what}: rank {rank} launched "
+                 f"{name} {c['cac'][name]} times; expected {want}")
+        if quant_want is not None:
+            for name, want in zip(("quant_im2col", "dequant_epilogue"),
+                                  quant_want):
+                want = want if inside else 0
+                need(c["quant"][name] == want, f"{what}: rank {rank} "
+                     f"launched {name} {c['quant'][name]} times; expected "
+                     f"{want}")
+
+
+def need_cli_counts(counts, want):
+    """Rank 0 of a mesh cli eval launched each CAC kernel `want` times:
+    5 a forward, 2 forwards a TTA8 batch."""
+    for name, count in counts.items():
+        need(count == want, f"mesh cli eval: rank 0 launched {name} "
+             f"{count} times; expected {want}")
+
+
+def comm_text(c) -> str:
+    """One rank's collective tallies: calls, bytes and transport each."""
+    return ", ".join(f"{k} {v['calls']} calls {v['bytes']} B "
+                     f"[{'/'.join(v['transport']) or '-'}]"
+                     for k, v in c.items() if v["calls"])
+
+
+def check_haloed_int8(kq, x, w8, sw, r, mask, what, **scale):
+    """The haloed gather and the haloed int8 conv (the kernels through
+    `codon::int8_conv`) against their plain versions on the same card
+    tensors, bitwise: x (N, h + 2r, W, C) int8 codes, or float with a
+    per-image `sx` as `Int8ShardedOps` gives it."""
+    import torch
+    k = w8.shape[0]
+    need(torch.equal(kq.quant_im2col(x, k, halo=r, **scale),
+                     kq.quant_im2col_plain(x, k, halo=r, **scale)),
+         f"{what}: haloed quant_im2col differs from its plain version")
+    got, want = (kq.int8_conv(x, w8, sw, torch.bfloat16, mask=mask,
+                              impl=impl, halo=r, **scale)
+                 for impl in (None, "plain"))
+    need(got.shape == (x.shape[0], x.shape[1] - 2 * r, x.shape[2],
+                       w8.shape[3]) and torch.equal(got, want),
+         f"{what}: haloed int8_conv differs from its plain version")
+
+
+def time_halo_routes(kq):
+    """The two routes of a haloed int8 conv at the b4 forward's sp = 2
+    shard (4 x 192 rows of 480, bfloat16 output), int8 input: (a) the
+    gather reads the halo rows and writes the shard's rows only (the
+    kernel's halo argument, the route the port takes); (b) a SAME gather
+    over the haloed rows, the GEMM over them, and the int32 products
+    cropped to the shard's rows before the epilogue. Both bitwise equal;
+    each timed as device time a call (`graph_ms`, a CUDA graph of
+    GRAPH_CALLS calls) and back to back with CUDA events. Before that,
+    at each site, the haloed kernels against their plain versions
+    (`check_haloed_int8`), with int8 input (the static sites' codes) and
+    with bfloat16 input on a per-image scale (the dynamic ones'), masked
+    as the shard's rows of a padded batch."""
+    import torch
+    n, h, w = MAIN_SHAPE[0], MAIN_SHAPE[1] // 2, MAIN_SHAPE[2]
+    rows = []
+    g = torch.Generator().manual_seed(33)
+    mask = torch.ones(n, h, w, 1)
+    mask[1:, h - 11:] = 0.0
+    mask[1:, :, w - 17:] = 0.0
+    mask = mask.to(DEVICE)
+    for k, c in HALO_ROUTE_SITES:
+        r = k // 2
+        x8 = torch.randint(-127, 128, (n, h + 2 * r, w, c), generator=g,
+                           dtype=torch.int8).to(DEVICE)
+        w8 = torch.randint(-127, 128, (k, k, c, c), generator=g,
+                           dtype=torch.int8).to(DEVICE)
+        sw = (torch.rand(c, generator=g) * 1e-3).to(DEVICE)
+        xf = torch.randn(n, h + 2 * r, w, c, generator=g).to(
+            DEVICE, torch.bfloat16)
+        # the scale as `_gathered_sample_scale` gives it, (N, 1, 1, 1)
+        sx = (xf.abs().amax((1, 2, 3), keepdim=True).clamp_min(1e-8)
+              / 127.0).float()
+        check_haloed_int8(kq, x8, w8, sw, r, mask, f"k{k} C{c} int8 input")
+        check_haloed_int8(kq, xf, w8, sw, r, mask,
+                          f"k{k} C{c} bf16 input, per-image scale", sx=sx)
+        wmat = w8.reshape(k * k * c, c).t().contiguous().t()
+
+        def halo_route():
+            return kq.int8_conv(x8, w8, sw, torch.bfloat16, halo=r)
+
+        def crop_route():
+            acc = kq.int8_gemm(kq.quant_im2col(x8, k), wmat)
+            acc = acc.view(n, h + 2 * r, w, c)[:, r:r + h]
+            return kq.dequant_epilogue(acc.reshape(-1, c).contiguous(), sw,
+                                       torch.bfloat16, (n, h, w))
+
+        a, b = halo_route(), crop_route()
+        need(torch.equal(a, b), f"haloed int8 conv k{k} C{c}: the two "
+             f"routes differ")
+        rows.append({"k": k, "c": c,
+                     "halo_device_ms": graph_ms(halo_route),
+                     "crop_device_ms": graph_ms(crop_route),
+                     "halo_ms": time_ms(halo_route, 2, 10),
+                     "crop_ms": time_ms(crop_route, 2, 10)})
+    return rows
+
+
+def run_mesh_cli(kc, data: str, tmp: str, ref_out: str, ref, dtype, ckpt):
+    """`cli eval --tile-devices 2 --dp-devices 2 --dist-backend gloo
+    --tta8 --device-metrics` (b4) against the single-device eval of the
+    same flags (phase 9 or 14): each image's PNG within MESH_CLI_PNG of
+    it, its RMSE within the RMS of the two PNGs' difference and SSIM within
+    0.01. The mesh must have run: the cli's "mesh eval" banner, and in its
+    --json summary every rank of the 2 x 2 mesh launched each CAC kernel
+    5 times a forward (the quant kernels too in int8), took its blocks,
+    exchanged halo rows, all-reduced its statistics and gave its outputs
+    back. Rank 0's CAC counts set to 0 just before and read just after."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from codon_tpu_torch.data.io import imread_gray
+    out = os.path.join(tmp, f"mesh_cli_{dtype}")
+    kc.reset_launches()
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        summary, wall = eval_once(
+            data, out, out + ".json", 4,
+            ["--tta8", "--device-metrics", "--tile-devices", "2",
+             "--dp-devices", "2", "--dist-backend", "gloo"], ckpt=ckpt,
+            dtype=dtype)
+    sys.stdout.write(said.getvalue())
+    need("mesh eval: dp=2 x sp=2 over 4 devices; backend gloo (4 ranks on "
+         "1 cuda device(s))" in said.getvalue(),
+         f"mesh cli eval {dtype}: no mesh banner")
+    counts = kc.launches()
+    want = 2 * 5 * -(-len(SCENES) // 4)
+    need_cli_counts(counts, want)
+    report = summary["mesh"]
+    need((report["dp"], report["sp"], report["backend"],
+          len(report["ranks"])) == (2, 2, "gloo", MESH_WORLD),
+         f"mesh cli eval {dtype}: ran on {report}")
+    need_mesh_counts(report["ranks"], 2, 2, want, None,
+                     f"mesh cli eval {dtype}")
+    for rank, c in enumerate(report["ranks"]):
+        moved = {p: c["comm"][p]["calls"] for p in
+                 ("scatter", "halo_rows", "all_sum", "all_max", "gather")}
+        need(all(moved.values()), f"mesh cli eval {dtype}: rank {rank}'s "
+             f"collectives {moved}")
+        if dtype == "int8":
+            need(all(c["quant"].values()), f"mesh cli eval int8: rank "
+                 f"{rank}'s quant launches {c['quant']}")
+    png_mean, png_max = MESH_CLI_PNG[dtype]
+    worst = {"png_mean": 0.0, "png_max": 0.0, "rmse": 0.0, "ssim": 0.0}
+    for m, r in zip(summary["per_image"], ref["per_image"]):
+        need(m["name"] == r["name"], "the mesh eval scored other images")
+        a = imread_gray(os.path.join(out, m["name"] + ".png"))
+        b = imread_gray(os.path.join(ref_out, r["name"] + ".png"))
+        d = np.abs(a.astype(np.float64) - b.astype(np.float64))
+        gap = {"png_mean": float(d.mean()), "png_max": float(d.max()),
+               "rmse": abs(m["rmse"] - r["rmse"]),
+               "ssim": abs(m["ssim"] - r["ssim"])}
+        need(gap["png_mean"] <= png_mean and gap["png_max"] <= png_max and
+             gap["rmse"] <= float(np.sqrt((d ** 2).mean())) + 1e-6 and
+             gap["ssim"] <= 0.01,
+             f"mesh cli eval {dtype}, {m['name']}: {gap} beyond the class "
+             f"(PNG mean {png_mean}, max {png_max} levels)")
+        worst = {k: max(worst[k], gap[k]) for k in worst}
+    return summary, wall, counts, worst
+
+
+def run_mesh_phase(kc, kq, data: str, tmp: str, refs):
+    """The mesh phase: sharded forwards against the single-device ones at
+    b4 and on one large frame, through 4 gloo ranks on the one card (this
+    process rank 0); cli eval over a 2 x 2 mesh; NCCL's set-up. refs:
+    {"bf16": (summary, out dir), "int8": (summary, out dir)} of the
+    single-device TTA8 evals."""
+    import dataclasses
+    import functools
+
+    import torch
+    from codon_tpu_torch import quant_ops as tq
+    from codon_tpu_torch.checkpoint.native import load_npz, params_from_numpy
+    from codon_tpu_torch.parallel import quant as pq
+    from codon_tpu_torch.core.params import BF16
+    from codon_tpu_torch.models.variants import get_variant
+    from codon_tpu_torch.parallel import (MeshPool, ShardedOps, comm,
+                                          make_tiled_forward,
+                                          tile_stitch_infer)
+    from codon_tpu_torch.parallel.launch import rank_counts, reset_rank_counts
+
+    res = {"cli": {}, "forms": []}
+    # cli eval over the mesh (its own pool, started and closed by the cli)
+    for dtype, ckpt in (("bf16", CKPT), ("int8", CKPT_INT8)):
+        ref, ref_out = refs[dtype]
+        res["cli"][dtype] = run_mesh_cli(kc, data, tmp, ref_out, ref, dtype,
+                                         ckpt)
+
+    b = first_batch(data)
+    d, c, m = b.depth, b.color, b.mask
+    p = ship4_params()
+    vb, vf = get_variant("codon", BF16), get_variant("codon")
+    single = {"bf16": vb.forward(p, d, c, mask=m),
+              "fp32": vf.forward(p, d, c, mask=m)}
+    res["single_ms"] = {
+        name: time_ms(lambda v=v: v.forward(p, d, c, mask=m), 1,
+                      MESH_TIME_ITERS) for name, v in (("bf16", vb),
+                                                       ("fp32", vf))}
+    tree = load_npz(CKPT_INT8)
+    scales = params_from_numpy(tree.pop("act_scales"), DEVICE)
+    p8 = params_from_numpy(tree, DEVICE)
+    p8d = params_from_numpy(load_npz(CKPT_INT8_DYN), DEVICE)
+    bf = torch.bfloat16
+    int8_single = {
+        "static": vb.forward(p8, d, c, mask=m, ops=tq.Int8StaticOps(
+            scales, compute_dtype=bf)),
+        "dynamic": vb.forward(p8d, d, c, mask=m, ops=tq.Int8Ops())}
+    res["int8_single_ms"] = {
+        "static": time_ms(lambda: vb.forward(p8, d, c, mask=m,
+                                             ops=tq.Int8StaticOps(
+                                                 scales, compute_dtype=bf)),
+                          1, MESH_TIME_ITERS),
+        "dynamic": time_ms(lambda: vb.forward(p8d, d, c, mask=m,
+                                              ops=tq.Int8Ops()),
+                           1, MESH_TIME_ITERS)}
+    n, h, w = MAIN_SHAPE[:3]
+    t0 = time.time()
+    with MeshPool(MESH_WORLD, device=DEVICE, backend="gloo",
+                  timeout_s=300) as pool:
+        res["pool_start_s"] = time.time() - t0
+        res["transport"] = pool.transport
+
+        def run(label, dp, sp, fwd, params, cac_want=5, quant_want=None):
+            pool.call(reset_rank_counts)
+            out = fwd(params, d, c, m)
+            torch.cuda.synchronize()
+            counts = pool.call(rank_counts)
+            need_mesh_counts(counts, dp, sp, cac_want, quant_want, label)
+            ms = time_ms(lambda: fwd(params, d, c, m), 1, MESH_TIME_ITERS)
+            return out, counts, ms
+
+        # float: bf16 and fp32 through the kernels, every form
+        for dp, sp in MESH_FORMS:
+            for name, v in (("bf16", vb), ("fp32", vf)):
+                fwd = make_tiled_forward(v, sp, dp, pool=pool)
+                out, counts, ms = run(f"{name} {dp}x{sp}", dp, sp, fwd, p)
+                row = {"form": f"{dp}x{sp}", "dtype": name, "ms": ms,
+                       "counts": counts}
+                if name == "bf16":
+                    row["class"] = mesh_bf16_class(out, single["bf16"],
+                                                   single["fp32"])
+                else:
+                    row["max_abs_diff"] = mesh_fp32_close(
+                        out, single["fp32"], f"fp32 {dp}x{sp}")
+                    if (dp, sp) == (1, 4):
+                        # kernel-sharded against plain-sharded
+                        vt = dataclasses.replace(vf, cfg=dataclasses.replace(
+                            vf.cfg, cac_impl="torch"))
+                        plain = make_tiled_forward(vt, 4, 1, pool=pool)(
+                            p, d, c, m)
+                        row["kernel_vs_plain"] = float(
+                            (out - plain).abs().max())
+                        need(row["kernel_vs_plain"] <= FWD_TOL,
+                             f"fp32 1x4 kernels vs plain stage "
+                             f"{row['kernel_vs_plain']:.3e} > {FWD_TOL}")
+                res["forms"].append(row)
+
+        # int8: static (scales through scales_factory) and dynamic
+        static = functools.partial(pq.static_int8_ops, compute_dtype=bf)
+        for dp, sp in ((2, 2), (1, 4)):
+            local = (n // dp, h // sp, w)
+            for kind in ("static", "dynamic"):
+                if kind == "static":
+                    fwd = make_tiled_forward(vb, sp, dp, pool=pool,
+                                             scales_factory=static)
+                    params = dict(p8, act_scales=scales)
+                else:
+                    fwd = make_tiled_forward(vb, sp, dp, pool=pool,
+                                             ops_factory=pq.Int8ShardedOps,
+                                             local_ops=tq.Int8Ops())
+                    params = p8d
+                want = mesh_int8_launches(kq, *local, kind == "static")
+                out, counts, ms = run(f"int8 {kind} {dp}x{sp}", dp, sp, fwd,
+                                      params, quant_want=want)
+                dd = (out - int8_single[kind]).abs()
+                row = {"form": f"{dp}x{sp}", "dtype": f"int8 {kind}",
+                       "ms": ms, "counts": counts,
+                       "flip": (float(dd.mean()), float(dd.max()))}
+                need(row["flip"][0] <= INT8_CPU_BOUNDS[0] and
+                     row["flip"][1] <= INT8_CPU_BOUNDS[1],
+                     f"int8 {kind} {dp}x{sp} vs unsharded: {row['flip']} "
+                     f"beyond the flip class {INT8_CPU_BOUNDS}")
+                res["forms"].append(row)
+
+        # the other two forwards at sp = 2
+        for name, cac_want in (("codon_fused", 5), ("rmcr_fuse_rmcr", 0)):
+            v, v32 = get_variant(name, BF16), get_variant(name)
+            ref, ref32 = (v.forward(p, d, c, mask=m),
+                          v32.forward(p, d, c, mask=m))
+            fwd = make_tiled_forward(v, 2, 1, pool=pool)
+            out, counts, ms = run(f"{name} 1x2", 1, 2, fwd, p, cac_want)
+            res["forms"].append({
+                "form": "1x2", "dtype": f"bf16 {name}", "ms": ms,
+                "counts": counts,
+                "class": mesh_bf16_class(out, ref, ref32),
+                "single_ms": time_ms(lambda v=v: v.forward(p, d, c, mask=m),
+                                     1, MESH_TIME_ITERS)})
+
+        # one large frame, b1 bf16: sp = 2 against untiled, and stitched
+        H, W = LARGE_FRAME
+        sh, sw_ = SCENES[0]
+        big = [t[:1, :sh, :sw_].repeat_interleave(4, 1)
+               .repeat_interleave(4, 2).contiguous() for t in (d, c)]
+        ref = vb.forward(p, *big)
+        ref32 = vf.forward(p, *big)
+        fwd = make_tiled_forward(vb, 2, 1, pool=pool)
+        pool.call(reset_rank_counts)
+        out = fwd(p, *big, None)
+        torch.cuda.synchronize()
+        counts = pool.call(rank_counts)
+        need_mesh_counts(counts, 1, 2, 5, None, "large frame 1x2")
+        large = {"class": mesh_bf16_class(out, ref, ref32), "counts": counts,
+                 "ms": time_ms(lambda: fwd(p, *big, None), 1, 2),
+                 "single_ms": time_ms(lambda: vb.forward(p, *big), 1, 2)}
+        t1 = time.time()
+        stitched = tile_stitch_infer(vb, p, big[0].cpu().numpy(),
+                                     big[1].cpu().numpy(), tile_h=STITCH_TILE)
+        large["stitch_s"] = time.time() - t1
+        large["stitch_mean"] = float(
+            (torch.from_numpy(stitched).to(DEVICE) - ref).abs().mean())
+        need(0 < large["stitch_mean"] < STITCH_MEAN_TOL,
+             f"tile-and-stitch vs untiled mean |d| {large['stitch_mean']}")
+        res["large"] = large
+    need(not any(proc.is_alive() for proc in pool._procs),
+         "a mesh rank outlived its pool")
+    res["nccl"] = run_nccl_setup(vb, p, d, c, m, single)
+    res["halo_routes"] = time_halo_routes(kq)
+    return res
+
+
+def run_nccl_setup(vb, p, d, c, m, single):
+    """NCCL refuses 2 ranks on one card, naming gloo; its one-rank group
+    runs the sharded forward (the CAC stage's all-reduces over NCCL)."""
+    import torch
+    from codon_tpu_torch.parallel import MeshPool, ShardedOps, comm
+    res = {}
+    try:
+        comm.choose_backend("nccl", DEVICE, 2)
+        need(torch.cuda.device_count() >= 2, "NCCL took 2 ranks on 1 card")
+    except RuntimeError as e:
+        need("--dist-backend gloo" in str(e), f"NCCL's refusal: {e}")
+        res["refusal"] = str(e)
+    with MeshPool(1, device=DEVICE, backend="nccl", timeout_s=120) as pool:
+        mesh = pool.mesh(1, 1)
+        comm.reset_counts()
+        out = vb.forward(p, d, c, mask=m, ops=ShardedOps(mesh))
+        res.update(transport=pool.transport, comm=comm.counts(),
+                   **{"class": mesh_bf16_class(out, single["bf16"],
+                                               single["fp32"])})
+        need(res["comm"]["all_sum"]["transport"] == ["nccl"],
+             "the one-rank NCCL stage did not all-reduce over NCCL")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -3361,7 +3827,84 @@ def main() -> int:
             f"{serve_proc['wall_s']:.1f} s wall")
         say(f"serve phase: {time.time() - t0:.1f} s")
 
-    # 33. results
+        # 33. the mesh: sharded forwards on 4 gloo ranks sharing the card
+        t0 = time.time()
+        mesh = run_mesh_phase(kc, kq, data, tmp, {
+            "bf16": (tta, os.path.join(tmp, "tta8_dm")),
+            "int8": (i8t, os.path.join(tmp, "int8_tta8"))})
+        for dtype, (r, r_wall, r_counts, gap) in mesh["cli"].items():
+            say(f"mesh cli: cli eval --tile-devices 2 --dp-devices 2 "
+                f"--dist-backend gloo --tta8 --device-metrics {dtype} b4, "
+                f"mean RMSE {r['mean_rmse']}, mean SSIM {r['mean_ssim']}, "
+                f"{r_wall:.1f} s wall (pool start included); vs the "
+                f"single-device eval: PNG mean |d| <= "
+                f"{gap['png_mean']:.4f}, max <= {gap['png_max']:.0f} levels, "
+                f"RMSE |d| <= {gap['rmse']:.4f}, SSIM |d| <= "
+                f"{gap['ssim']:.2e}; rank 0 launches {r_counts}")
+            ranks = r["mesh"]["ranks"]
+            say(f"mesh cli {dtype} by rank (--json's mesh entry): CAC "
+                f"launches {[c['cac']['cac_stats'] for c in ranks]}, quant "
+                f"{[c['quant']['quant_im2col'] for c in ranks]}; "
+                + "; ".join(f"rank {i} {comm_text(c['comm'])}"
+                            for i, c in enumerate(ranks)))
+        say(f"mesh pool: {MESH_WORLD} gloo ranks on one card, started in "
+            f"{mesh['pool_start_s']:.1f} s; transport {mesh['transport']}")
+        say(f"mesh single-device b4 384x480: bf16 "
+            f"{mesh['single_ms']['bf16']:.2f} ms, fp32 "
+            f"{mesh['single_ms']['fp32']:.2f} ms, int8 static "
+            f"{mesh['int8_single_ms']['static']:.2f} ms, dynamic "
+            f"{mesh['int8_single_ms']['dynamic']:.2f} ms ({card})")
+        for r in mesh["forms"]:
+            if "class" in r:
+                cmp = (f"vs single mean {r['class'][0]:.3e} max "
+                       f"{r['class'][1]:.3e} (bf16 vs fp32 mean "
+                       f"{r['class'][2]:.3e} max {r['class'][3]:.3e})")
+            elif "flip" in r:
+                cmp = (f"vs unsharded mean {r['flip'][0]:.3e} max "
+                       f"{r['flip'][1]:.3e} (<= {INT8_CPU_BOUNDS})")
+            else:
+                cmp = (f"vs single max |d| {r['max_abs_diff']:.3e} "
+                       f"(atol/rtol {MESH_FP32_TOL})"
+                       + (f", kernels vs plain stage "
+                          f"{r['kernel_vs_plain']:.3e} (<= {FWD_TOL})"
+                          if "kernel_vs_plain" in r else ""))
+            say(f"mesh {r['dtype']} {r['form']} b4 384x480: {cmp}; wall "
+                f"{r['ms']:.2f} ms a forward"
+                + (f" (single {r['single_ms']:.2f})" if "single_ms" in r
+                   else "")
+                + f", ranks sharing one H100 over gloo ({card}); launches "
+                  f"by rank "
+                + str([{**c["cac"], **{k: c["quant"][k] for k in
+                                       ("quant_im2col", "dequant_epilogue")}}
+                       for c in r["counts"]]))
+            say(f"mesh {r['dtype']} {r['form']} rank 0 collectives: "
+                f"{comm_text(r['counts'][0]['comm'])}")
+        lg = mesh["large"]
+        say(f"mesh large frame {LARGE_FRAME[0]}x{LARGE_FRAME[1]} b1 bf16 "
+            f"1x2: vs untiled mean {lg['class'][0]:.3e} max "
+            f"{lg['class'][1]:.3e} (bf16 vs fp32 mean {lg['class'][2]:.3e} "
+            f"max {lg['class'][3]:.3e}); wall {lg['ms']:.2f} ms, untiled "
+            f"{lg['single_ms']:.2f} ms (ranks sharing one H100 over gloo); "
+            f"tile_stitch_infer mean |d| {lg['stitch_mean']:.3e} (< "
+            f"{STITCH_MEAN_TOL}), {lg['stitch_s']:.2f} s; launches "
+            f"{[c['cac'] for c in lg['counts']]}")
+        nc = mesh["nccl"]
+        say(f"mesh nccl: 2 ranks on 1 card refused ({nc['refusal']}); "
+            f"one-rank NCCL group, ShardedOps forward bf16 b4 vs single mean "
+            f"{nc['class'][0]:.3e} max {nc['class'][1]:.3e}; transport "
+            f"{nc['transport']}; {comm_text(nc['comm'])}")
+        for r in mesh["halo_routes"]:
+            say(f"mesh haloed int8 conv k{r['k']} C{r['c']} 4x(192+"
+                f"{r['k'] - 1})x480 int8 in, bf16 out: gather with halo rows "
+                f"device {r['halo_device_ms']:.4f} ms (back to back "
+                f"{r['halo_ms']:.4f}), SAME gather + GEMM + crop device "
+                f"{r['crop_device_ms']:.4f} ms ({r['crop_ms']:.4f}) "
+                f"({card}); the haloed quant_im2col and int8_conv bitwise "
+                f"their plain versions, int8 in and bf16 in on a "
+                f"per-image scale, masked")
+        say(f"mesh phase: {time.time() - t0:.1f} s")
+
+    # 34. results
     int8_paths = {"eval_int8": i8_counts,
                   "eval_int8_tta8_device_metrics": i8t_counts,
                   "eval_int8_ensemble2_tta": i8e_counts,
@@ -3383,6 +3926,11 @@ def main() -> int:
                                                  r["counts"].values())
                                           for k in r["counts"][4]}
                    for r in serve_rows}
+    # the mesh's launches, a list by rank (rank 0 only for the cli evals,
+    # whose pool is the cli's own)
+    mesh_paths = {f"mesh_{r['dtype'].replace(' ', '_')}_{r['form']}":
+                  r["counts"] for r in mesh["forms"]}
+    mesh_paths["mesh_large_frame_bf16_1x2"] = mesh["large"]["counts"]
     kernels = []
     for name in ("cac_stats", "spatial_logits", "cac_apply"):
         t = timings[name]
@@ -3400,7 +3948,11 @@ def main() -> int:
                                  **{p: c[name] for p, c in
                                     cac_paths.items()},
                                  **{p: c[name] for p, c in
-                                    serve_paths.items()}},
+                                    serve_paths.items()},
+                                 **{p: [r["cac"][name] for r in c]
+                                    for p, c in mesh_paths.items()},
+                                 **{f"mesh_cli_{k}_rank0": v[2][name]
+                                    for k, v in mesh["cli"].items()}},
             **({"pitched": {"by_shape": ptimes[name],
                             "max_abs_err": max(r["max_abs_err"]
                                                for r in pchecks[name])}}
@@ -3439,7 +3991,10 @@ def main() -> int:
             "launches_by_path": {**{p: c[name] for p, c in
                                     int8_paths.items()},
                                  **{p: c[name] for p, c in
-                                    serve_paths.items()}},
+                                    serve_paths.items()},
+                                 **{p: [r["quant"][name] for r in c]
+                                    for p, c in mesh_paths.items()
+                                    if p.startswith("mesh_int8")}},
             "max_abs_err": max(r["max_abs_err"] for r in
                                qchecks[name] + wchecks[name]),
             "windowed": {"grouped_sites": wtimes, "max_abs_err": max(
@@ -3451,7 +4006,8 @@ def main() -> int:
             "bound_ms_a_forward": t["bound_ms_a_forward"],
             "by_shape": t["by_shape"], "shape": t["shape"],
             "dtype": "bfloat16",
-            **({"int8_gemm": gemms} if name == "quant_im2col" else {})})
+            **({"int8_gemm": gemms, "halo_routes": mesh["halo_routes"]}
+               if name == "quant_im2col" else {})})
     for k in kernels:
         # the same numbers under the names the port's records use
         k["max_err"] = k["max_abs_err"]

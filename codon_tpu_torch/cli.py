@@ -9,7 +9,8 @@ eval     run a model over a scale directory, write PNGs, report RMSE /
          --device-metrics scores on the card, --dtype int8 runs the
          quantized convs (static per-channel scales where the checkpoint
          carries act_scales/*, else dynamic per-sample ones); --resume,
-         --profile DIR, --check-nans
+         --profile DIR, --check-nans; --tile-devices / --dp-devices run
+         the forward over a dp x sp mesh of ranks (--dist-backend)
 train    train a model on patches of a scale dir (shipped input_depth/ or
          synthesized bicubic degradation): Adam(W) with warmup + cosine,
          clip-norm, l1 / l2 and --grad-loss, --qat / --qat-static,
@@ -28,12 +29,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
 import sys
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -98,6 +100,19 @@ def _build_argparser() -> argparse.ArgumentParser:
                         "and the forward's, raising FloatingPointError "
                         "that names the site (syncs the card at every "
                         "conv)")
+    e.add_argument("--tile-devices", type=int, default=0,
+                   help=">1: spatially tiled inference over N ranks (the "
+                        "image's H axis sharded, halo-exchange convs, "
+                        "all-reduced CAC statistics)")
+    e.add_argument("--dp-devices", type=int, default=0,
+                   help=">1: batch data-parallel inference over N ranks "
+                        "(the DataParallel analog; composes with "
+                        "--tile-devices into a dp x sp mesh)")
+    e.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="the mesh's torch.distributed backend: nccl (the "
+                        "default on CUDA, one card a rank) or gloo (the "
+                        "CPU's; on CUDA ranks share cards, rank r on "
+                        "cuda:(r %% cards))")
     e.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
 
@@ -331,11 +346,72 @@ def _member_ops(dtype, members, ensemble):
 @dataclasses.dataclass
 class EvalForward:
     """What `eval` runs. fwd(params, depth, color, mask) -> float32
-    (N, H, W, 1)."""
+    (N, H, W, 1). close() stops the mesh's ranks, if it has any;
+    mesh_report() gives the `--json` summary's "mesh" entry of a mesh
+    eval (`_mesh_report`)."""
     fwd: Callable
     params: Any              # a parameter tree, or a list of them
     tta: int                 # 0, 4 or 8 transforms
     ensemble: bool
+    close: Callable = lambda: None
+    mesh_report: Optional[Callable] = None
+
+
+def _mesh_forwards(args, members, device):
+    """The members' forwards over a dp x sp mesh of `MeshPool` ranks, as
+    `codon_tpu.cli eval --tile-devices/--dp-devices` builds them; int8
+    stays int8 there (JAX's round-1 bug was a mesh branch that fell back to
+    bf16): static members take their scales through scales_factory, in
+    their parameter trees, dynamic ones `Int8ShardedOps` (`Int8Ops` on a
+    pure dp mesh). -> (forwards, parameter trees, the pool)."""
+    from codon_tpu_torch.parallel import MeshPool, make_tiled_forward
+    from codon_tpu_torch.parallel.launch import reset_rank_counts
+    from codon_tpu_torch.parallel.quant import (Int8ShardedOps,
+                                                static_int8_ops)
+    from codon_tpu_torch.parallel.tiling import check_variant
+    from codon_tpu_torch.quant_ops import Int8Ops
+
+    dp, sp = max(1, args.dp_devices), max(1, args.tile_devices)
+    for _, _, v in members:
+        check_variant(v)
+    pool = MeshPool(dp * sp, device=device, backend=args.dist_backend)
+    fwds, trees = [], []
+    try:
+        # every rank's tallies from here on are this eval's
+        pool.call(reset_rank_counts)
+        for p, sc, v in members:
+            kw = {}
+            if args.dtype == "int8" and sc is not None:
+                kw["scales_factory"] = functools.partial(
+                    static_int8_ops,
+                    compute_dtype=v.cfg.dtypes.compute_dtype)
+                p = dict(p, act_scales=sc)
+            elif args.dtype == "int8":
+                kw = {"ops_factory": Int8ShardedOps, "local_ops": Int8Ops()}
+            fwds.append(make_tiled_forward(v, sp, dp, pool=pool,
+                                           check_nans=args.check_nans, **kw))
+            trees.append(p)
+    except BaseException:
+        pool.close()
+        raise
+    cards = (torch.cuda.device_count() if pool.device.type == "cuda"
+             else 1)
+    print(f"mesh eval: dp={dp} x sp={sp} over {dp * sp} devices"
+          + (f", {len(members)}-model ensemble" if len(members) > 1 else "")
+          + f"; backend {pool.backend} ({dp * sp} ranks on {cards} "
+            f"{pool.device.type} device(s)), transport {pool.transport}")
+    return fwds, trees, pool
+
+
+def _mesh_report(pool, dp, sp):
+    """A mesh eval's entry in the `--json` summary: the mesh, its backend
+    and transport, and each rank's tallies since the eval started
+    (`parallel.launch.rank_counts`: CAC and quant kernel launches on the
+    card, and each collective's calls, bytes and transports), rank 0
+    first."""
+    from codon_tpu_torch.parallel.launch import rank_counts
+    return {"dp": dp, "sp": sp, "backend": pool.backend,
+            "transport": pool.transport, "ranks": pool.call(rank_counts)}
 
 
 def make_eval_forward(args, device) -> EvalForward:
@@ -360,30 +436,45 @@ def make_eval_forward(args, device) -> EvalForward:
                       for ops in member_ops]
     cond = args.scale / 16.0 if args.scale_cond else None
 
-    def member_fwd(v, ops):
+    def single(v, ops):
+        return lambda p, d, c, m: v.forward(p, d, c, mask=m, ops=ops)
+
+    extra = {}
+    if max(1, args.dp_devices) * max(1, args.tile_devices) > 1:
+        bodies, trees, pool = _mesh_forwards(args, members, device)
+        extra["close"] = pool.close
+        extra["mesh_report"] = functools.partial(
+            _mesh_report, pool, max(1, args.dp_devices),
+            max(1, args.tile_devices))
+    else:
+        bodies = [single(v, ops) for (_, _, v), ops in zip(members,
+                                                           member_ops)]
+        trees = [p for p, _, _ in members]
+
+    def member_fwd(v, body):
         def fwd(p, d, c, m):
-            out = v.forward(p, d, c, mask=m, ops=ops)
+            out = body(p, d, c, m)
             if args.check_nans:
                 check_nan(out, f"the {v.name} forward")
             return out
         return with_scale_cond(fwd, cond) if cond is not None else fwd
 
-    fwds = [member_fwd(v, ops) for (_, _, v), ops in zip(members, member_ops)]
+    fwds = [member_fwd(v, body) for (_, _, v), body in zip(members, bodies)]
     if ensemble:
-        params = [p for p, _, _ in members]
+        params = trees
 
         def inner(plist, d, c, m):
             outs = [f(p, d, c, m) for p, f in zip(plist, fwds)]
             return sum(outs) / len(outs)
     else:
-        params = members[0][0]
+        params = trees[0]
         inner = fwds[0]
     tta_n = 8 if args.tta8 else (4 if args.tta else 0)
     fwd = inner
     if tta_n:
         from codon_tpu_torch.models.tta import make_tta_forward
         fwd = make_tta_forward(inner, transforms=tta_n)
-    return EvalForward(fwd, params, tta_n, ensemble)
+    return EvalForward(fwd, params, tta_n, ensemble, **extra)
 
 
 def cmd_eval(args) -> int:
@@ -398,6 +489,7 @@ def cmd_eval(args) -> int:
     if log_ctx:
         log_ctx.__enter__()
     prof = None
+    ef = None
     try:
         scale_dir = _scale_dir(args)
         ef = make_eval_forward(args, device)
@@ -523,6 +615,8 @@ def cmd_eval(args) -> int:
             "tta_transforms": ef.tta,
             "per_image": per_image,
         }
+        if ef.mesh_report is not None:
+            summary["mesh"] = ef.mesh_report()
         if n:
             print(n)
             print(rmse_sum / n, ssim_sum / n)
@@ -539,6 +633,8 @@ def cmd_eval(args) -> int:
     finally:
         if prof is not None:
             prof.__exit__(None, None, None)
+        if ef is not None:
+            ef.close()
         if log_ctx:
             log_ctx.__exit__(None, None, None)
 

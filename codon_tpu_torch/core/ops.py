@@ -22,6 +22,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from codon_tpu_torch.kernels import cac as _cac
+
 
 def hwio_to_oihw(w: torch.Tensor) -> torch.Tensor:
     """HWIO kernel -> OIHW kernel in channels_last memory (O, H, W, I); a
@@ -36,13 +38,19 @@ def hwio_to_oihw(w: torch.Tensor) -> torch.Tensor:
     return oihw.contiguous(memory_format=torch.channels_last)
 
 
-def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor,
-                groups: int = 1) -> torch.Tensor:
+def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, groups: int = 1,
+                halo: int = 0) -> torch.Tensor:
     """Stride-1 SAME conv of NHWC `x` with HWIO `w` (k, k, C/groups, O), in
-    x.dtype -> NHWC."""
+    x.dtype -> NHWC.
+
+    halo: rows of x above and below that belong to the neighbouring shards
+    of a spatially sharded image (0 <= halo <= k // 2): the conv pads H with
+    k // 2 - halo zero rows instead of k // 2, so the output has H - 2 * halo
+    rows; W stays SAME."""
     k = w.shape[0]
     wt = hwio_to_oihw(w.to(x.dtype))
-    y = F.conv2d(x.permute(0, 3, 1, 2), wt, padding=k // 2, groups=groups)
+    y = F.conv2d(x.permute(0, 3, 1, 2), wt, padding=(k // 2 - halo, k // 2),
+                 groups=groups)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -84,6 +92,24 @@ class TorchOps:
         if mask is not None:
             x = x * mask.to(x.dtype)
         return x.sum(dim=(1, 2), keepdim=True)
+
+    def cac_stage(self, out, out_c, inputs, inputs_c, w1, b1, w2, b2, sp_w,
+                  mask=None, dst=None):
+        """One CAC stage through the three CUDA kernels (their plain versions
+        on CPU tensors), pooled over the whole image this process holds:
+        `kernels.cac.cac_stage`, or under autograd `CacStageFunction` (no
+        `dst` there). A spatially sharded backend pools over every shard
+        instead (`parallel.ops.ShardedOps.cac_stage`: the same kernels,
+        the statistics reduced over its sp group): the model routes its
+        kernel stage through its Ops backend so that a sharded forward never
+        reaches this one."""
+        args = (out, out_c, inputs, inputs_c, w1, b1, w2, b2, sp_w)
+        if torch.is_grad_enabled():
+            if dst is not None:
+                raise ValueError("the training stage returns fresh towers; "
+                                 "dst is an eval-only form")
+            return _cac.CacStageFunction.apply(*args, mask)
+        return _cac.cac_stage(*args, mask, dst)
 
     def precommit(self, x, name=None):
         """Stage-boundary handoff to conv site `name`: identity on floats."""

@@ -46,7 +46,7 @@ _SIGNATURES = {
     "codon_copy3d": [_P, _P, _L, _L, _L, _P],
     "codon_copy_ring_grid": [ctypes.POINTER(_I)],
     "codon_quant_im2col": [_I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _P],
+                           _I, _I, _I, _P],
     "codon_dequant_epilogue": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _P],
 }

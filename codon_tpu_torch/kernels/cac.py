@@ -298,7 +298,7 @@ def launches() -> dict:
 # ---------------------------------------------------------------------------
 
 def cac_stage(out, out_c, inputs, inputs_c, w1, b1, w2, b2, sp_w, mask=None,
-              dst=None):
+              dst=None, group=None):
     """One CAC stage through the three kernels -> (new_out, new_out_c),
     written into `dst` (a pair of tower views) when it is given.
 
@@ -307,13 +307,28 @@ def cac_stage(out, out_c, inputs, inputs_c, w1, b1, w2, b2, sp_w, mask=None,
     summed before the sigmoid (float32, in PyTorch); logits; apply. With a
     mask (N,H,W,1) the towers must already be zero on padding, as masked
     convs leave them.
+
+    group: the sp process group when the towers are one spatial shard of
+    the image (`parallel.ops.ShardedOps`), whose statistics pool over every
+    shard: one all_sum of [channel sums | valid-pixel count], an all_max of
+    the channel maxes, and 2 halo rows of the pooled maps from each
+    neighbour (zero rows at the image's top and bottom, the stencil's own
+    SAME padding) for `spatial_logits`, cropped to the shard's rows. None:
+    the towers hold whole images.
     """
     n, h, w, c = out.shape
     ch_sum, ch_max, cmax, cmean = cac_stats(out, out_c, mask)
     if mask is not None:
         denom = mask.float().sum((1, 2, 3))[:, None, None]
+    elif group is not None:
+        denom = ch_sum.new_full((n, 1, 1), float(h * w))
     else:
         denom = float(h * w)
+    if group is not None:
+        from codon_tpu_torch.parallel.comm import all_max, all_sum, halo_rows
+        both = all_sum(torch.cat([ch_sum, denom], -1), group)
+        ch_sum, denom = both[..., :-1], both[..., -1:]
+        ch_max = all_max(ch_max, group)
     avg = ch_sum / denom
 
     def mlp(v):
@@ -321,7 +336,14 @@ def cac_stage(out, out_c, inputs, inputs_c, w1, b1, w2, b2, sp_w, mask=None,
         return hid @ w2.float() + b2.float()
 
     gate = torch.sigmoid(mlp(avg) + mlp(ch_max)).contiguous()   # (N,1,C)
-    sp = spatial_logits(cmax, cmean, sp_w)
+    if group is None:
+        sp = spatial_logits(cmax, cmean, sp_w)
+    else:
+        r = (sp_w.shape[0] - 1) // 2
+        planes = halo_rows(torch.stack([cmax, cmean], -1), r, group)
+        sp = spatial_logits(planes[..., 0].contiguous(),
+                            planes[..., 1].contiguous(),
+                            sp_w)[:, r:r + h].contiguous()
     return cac_apply(out, out_c, inputs, inputs_c, gate, sp, dst)
 
 

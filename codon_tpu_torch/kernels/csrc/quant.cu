@@ -84,11 +84,16 @@ __device__ __forceinline__ int8_t quantize(float v, float s) {
 // ---------------------------------------------------------------------------
 // quant_im2col
 //
-// x (N, H, W, C) NHWC -> patches (N*H*W, k*k*C) int8, row-major, a row's K
-// ordered (dy, dx, c) as the folded HWIO weights reshaped to (K, C_out).
+// x (N, H, W, C) NHWC -> patches (N*Ho*W, k*k*C) int8, row-major, a row's
+// K ordered (dy, dx, c) as the folded HWIO weights reshaped to (K, C_out).
 // Float input is quantized on the site's grid, round(x / s) clipped to
 // +-127, s per channel (mode 1, static) or per image (mode 2, dynamic);
 // int8 input (mode 0) is already on it. SAME padding is written as code 0.
+// A spatial shard's input carries `halo` rows of its neighbours above and
+// below (0 <= halo <= k/2): its patches are those of the Ho = H - 2*halo
+// middle rows, with k/2 - halo rows of zero padding in H (none when the
+// halo is the whole stencil radius) and SAME padding in W. The quantize
+// pass covers the halo rows too, on the same scale as their home shard.
 //
 // Bound: bytes. It writes N*H*W*k*k*C bytes of codes and reads x once
 // (4 x 184,320 x 3,200 B = 2.36 GB of patches at a 5x5, 128-channel site
@@ -132,8 +137,8 @@ quantize_kernel(const T* __restrict__ x, const float* __restrict__ scale,
 
 __global__ void __launch_bounds__(kThreads)
 im2col_gather_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
-                     int H, int W, int C, int k, int c0, int cg,
-                     unsigned total) {
+                     int H, int Ho, int W, int C, int k, int pr, int c0,
+                     int cg, unsigned total) {
   const unsigned cv = cg / kVec;               // vectors of a pixel's window
   const unsigned kv = (unsigned)(k * k) * cv;  // vectors of a patch row
   const int r = k / 2;
@@ -147,9 +152,9 @@ im2col_gather_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
     const int dx = (int)tap - dy * k;
     const unsigned t = row / (unsigned)W;
     const int px = (int)(row - t * (unsigned)W);
-    const unsigned img = t / (unsigned)H;
-    const int py = (int)(t - img * (unsigned)H);
-    const int sy = py + dy - r;
+    const unsigned img = t / (unsigned)Ho;
+    const int py = (int)(t - img * (unsigned)Ho);
+    const int sy = py + dy - pr;
     const int sx = px + dx - r;
     uint4 codes = make_uint4(0u, 0u, 0u, 0u);
     if (sy >= 0 && sy < H && sx >= 0 && sx < W)
@@ -262,16 +267,18 @@ extern "C" {
 // x (n, h, w, c) of dtype code `dtype` (0-2 float, 3 int8); mode 0 (int8
 // input, scale null), 1 (scale[c]) or 2 (scale[n]); the channel window
 // [c0, c0 + cg) is gathered; scratch (n, h, w, c) int8 for float input
-// unless k = 1 and the window is all of c, else unused; out (n*h*w,
-// k*k*cg) int8. c, c0 and cg are multiples of 16, k odd; n*h*w*k*k*cg/16
-// and n*h*w*c/16 < 2^32.
+// unless k = 1 and the window is all of c, else unused; out (n*ho*w,
+// k*k*cg) int8 with ho = h - 2*halo, 0 <= halo <= k/2 < h/2. c, c0 and cg
+// are multiples of 16, k odd; n*ho*w*k*k*cg/16 and n*h*w*c/16 < 2^32.
 int codon_quant_im2col(int dtype, const void* x, const float* scale,
                        int mode, void* scratch, void* out, int n, int h,
-                       int w, int c, int k, int c0, int cg, void* stream) {
+                       int w, int c, int k, int halo, int c0, int cg,
+                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ho = h - 2 * halo;
   const unsigned pix_vecs = (unsigned)((size_t)n * h * w * (c / kVec));
   const unsigned total =
-      (unsigned)((size_t)n * h * w * (cg / kVec)) * (unsigned)(k * k);
+      (unsigned)((size_t)n * ho * w * (cg / kVec)) * (unsigned)(k * k);
   if (total == 0) return 0;
   const bool whole = k == 1 && c0 == 0 && cg == c;
   const void* codes = x;
@@ -290,8 +297,8 @@ int codon_quant_im2col(int dtype, const void* x, const float* scale,
     codes = scratch;
   }
   im2col_gather_kernel<<<grid_for(total), kThreads, 0, st>>>(
-      static_cast<const int8_t*>(codes), static_cast<int8_t*>(out), h, w, c,
-      k, c0, cg, total);
+      static_cast<const int8_t*>(codes), static_cast<int8_t*>(out), h, ho, w,
+      c, k, k / 2 - halo, c0, cg, total);
   return (int)cudaGetLastError();
 }
 

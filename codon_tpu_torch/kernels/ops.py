@@ -17,11 +17,14 @@ reaches the same ops through the public wrappers of `kernels.cac` and
                          (the merged-tower forward's halves of the next T);
                          it mutates them and returns nothing, since an op
                          may not return an alias of its input
-  codon::quant_im2col    (x, k, sc?, sx?, c0, cg?) -> int8 patches (the
-                         static backend's handoffs: its quantize at k = 1)
-  codon::int8_conv       (x, w8, sw, dtype, sc?, sx?, mask?, groups)
-                         -> (N, H, W, C_out): the whole composed conv,
-                         image blocks, GEMM padding and groups inside
+  codon::quant_im2col    (x, k, sc?, sx?, c0, cg?, halo=0) -> int8 patches
+                         (the static backend's handoffs: its quantize at
+                         k = 1)
+  codon::int8_conv       (x, w8, sw, dtype, sc?, sx?, mask?, groups,
+                         halo=0) -> (N, H - 2 halo, W, C_out): the whole
+                         composed conv, image blocks, GEMM padding and
+                         groups inside; halo > 0 on a spatial shard whose
+                         neighbours' rows were exchanged
 
 Each op has two implementations and no other: on CPU tensors the plain
 PyTorch version, on CUDA tensors the launch code of `kernels.cac` and
@@ -132,33 +135,34 @@ def _(out, out_c, inputs, inputs_c, gate, sp_logits, dst, dst_c):
                          device_types=_CPU)
 def quant_im2col(x: Tensor, k: int, sc: Optional[Tensor],
                  sx: Optional[Tensor], c0: int,
-                 cg: Optional[int]) -> Tensor:
-    return quant.quant_im2col_plain(x, k, sc, sx, c0, cg)
+                 cg: Optional[int], halo: int = 0) -> Tensor:
+    return quant.quant_im2col_plain(x, k, sc, sx, c0, cg, halo)
 
 
 quant_im2col.register_kernel(_CUDA)(quant._quant_im2col_cuda)
 
 
 @quant_im2col.register_fake
-def _(x, k, sc, sx, c0, cg):
+def _(x, k, sc, sx, c0, cg, halo=0):
     n, h, w, c = x.shape
-    return x.new_empty((n * h * w, k * k * (c if cg is None else cg)),
-                       dtype=torch.int8)
+    return x.new_empty((n * (h - 2 * halo) * w,
+                        k * k * (c if cg is None else cg)), dtype=torch.int8)
 
 
 @torch.library.custom_op("codon::int8_conv", mutates_args=(),
                          device_types=(_CPU, _CUDA))
 def int8_conv(x: Tensor, w8: Tensor, sw: Tensor, dtype: torch.dtype,
               sc: Optional[Tensor], sx: Optional[Tensor],
-              mask: Optional[Tensor], groups: int) -> Tensor:
+              mask: Optional[Tensor], groups: int,
+              halo: int = 0) -> Tensor:
     # its steps are the wrappers `quant_im2col`, `int8_gemm` and
     # `dequant_epilogue`, called directly: the plain versions on CPU
     # tensors, the kernels on CUDA ones
     return quant.composed_int8_conv(x, w8, sw, dtype, sc, sx, mask, groups,
-                                    plain=False)
+                                    plain=False, halo=halo)
 
 
 @int8_conv.register_fake
-def _(x, w8, sw, dtype, sc, sx, mask, groups):
+def _(x, w8, sw, dtype, sc, sx, mask, groups, halo=0):
     n, h, w, _ = x.shape
-    return x.new_empty((n, h, w, w8.shape[3]), dtype=dtype)
+    return x.new_empty((n, h - 2 * halo, w, w8.shape[3]), dtype=dtype)

@@ -68,15 +68,31 @@ def quantize_plain(x, s):
     return torch.clamp(torch.round(x.float() / s), -127, 127).to(torch.int8)
 
 
-def quant_im2col_plain(x, k, sc=None, sx=None, c0=0, cg=None):
-    """x (N,H,W,C) -> (N*H*W, k*k*cg) int8 patches of the channel window
+def halo_rows_out(h, k, halo):
+    """Output rows of a conv whose input carries `halo` rows of its
+    neighbours above and below: h - 2 * halo. 0 <= halo <= k // 2; halo 0
+    is SAME padding in H, halo k // 2 none (the haloed rows stand in for
+    it); W is SAME-padded either way."""
+    _need(0 <= halo <= k // 2 and h > 2 * halo,
+          "halo={}: expected 0 <= halo <= k // 2 = {} and more than "
+          "2 * halo input rows, got {}", halo, k // 2, h)
+    return h - 2 * halo
+
+
+def quant_im2col_plain(x, k, sc=None, sx=None, c0=0, cg=None, halo=0):
+    """x (N,H,W,C) -> (N*Ho*W, k*k*cg) int8 patches of the channel window
     [c0, c0 + cg) (all of C by default), K ordered (dy, dx, c).
 
     x int8: taken as codes (sc and sx None). Else exactly one of sc (C,)
     float32, a static per-channel scale, or sx (N,) float32, a dynamic
     per-image one; all C channels are quantized.
+    halo: rows of x that belong to the neighbouring shards above and
+    below (a spatially sharded conv's exchanged rows): the patches are
+    those of the Ho = H - 2 * halo middle rows, read through them, with
+    k // 2 - halo zero rows of padding in H (`halo_rows_out`).
     """
     n, h, w, _ = x.shape
+    ho = halo_rows_out(h, k, halo)
     if x.dtype == torch.int8:
         q = x
     else:
@@ -84,9 +100,11 @@ def quant_im2col_plain(x, k, sc=None, sx=None, c0=0, cg=None):
     c = q.shape[3] if cg is None else cg
     q = q[..., c0:c0 + c]
     r = k // 2
-    qp = F.pad(q, (0, 0, r, r, r, r))
-    taps = [qp[:, dy:dy + h, dx:dx + w] for dy in range(k) for dx in range(k)]
-    return torch.stack(taps, 3).reshape(n * h * w, k * k * c)
+    pr = r - halo
+    qp = F.pad(q, (0, 0, r, r, pr, pr))
+    taps = [qp[:, dy:dy + ho, dx:dx + w] for dy in range(k)
+            for dx in range(k)]
+    return torch.stack(taps, 3).reshape(n * ho * w, k * k * c)
 
 
 def dequant_epilogue_plain(acc, sw, dtype, shape, sx=None, mask=None,
@@ -138,7 +156,7 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def quant_im2col(x, k, sc=None, sx=None, c0=0, cg=None):
+def quant_im2col(x, k, sc=None, sx=None, c0=0, cg=None, halo=0):
     """Kernel-backed `quant_im2col_plain`. On the card C, c0 and cg are
     multiples of 16 and x starts on a 16-byte boundary. Float input takes
     two kernels (quantize, then gather), counted as one launch of the
@@ -146,11 +164,11 @@ def quant_im2col(x, k, sc=None, sx=None, c0=0, cg=None):
     itself. Inside `codon::int8_conv` it is called directly; the int8
     handoffs reach it through the op `codon::quant_im2col`."""
     if _on_cpu(x):
-        return quant_im2col_plain(x, k, sc, sx, c0, cg)
-    return _quant_im2col_cuda(x, k, sc, sx, c0, cg)
+        return quant_im2col_plain(x, k, sc, sx, c0, cg, halo)
+    return _quant_im2col_cuda(x, k, sc, sx, c0, cg, halo)
 
 
-def _quant_im2col_cuda(x, k, sc, sx, c0, cg):
+def _quant_im2col_cuda(x, k, sc, sx, c0, cg, halo=0):
     """`quant_im2col` on the card, the CUDA implementation of
     `codon::quant_im2col`."""
     _need(x.dim() == 4 and x.dtype in _DTYPE_CODES and x.is_contiguous(),
@@ -165,6 +183,7 @@ def _quant_im2col_cuda(x, k, sc, sx, c0, cg):
           "channel window [{}, {}) of C={}: the gather reads whole 16-byte "
           "vectors inside C", c0, c0 + cg, c)
     _need(k % 2 == 1, "k={}: the kernel takes odd kernels", k)
+    ho = halo_rows_out(h, k, halo)
     if x.dtype == torch.int8:
         _need(sc is None and sx is None, "int8 input takes no scale")
         mode, scale = _MODE_NONE, None
@@ -179,9 +198,9 @@ def _quant_im2col_cuda(x, k, sc, sx, c0, cg):
             _check_vector(scale, (n,), "sx")
         _need(scale.device == x.device, "scale on {}, x on {}",
               scale.device, x.device)
-    rows, kk = n * h * w, k * k * cg
-    _need(max(rows * kk, rows * c) // _VEC < 2 ** 32, "{} patch bytes: "
-          "more than the kernel's 32-bit vector index", rows * kk)
+    rows, kk = n * ho * w, k * k * cg
+    _need(max(rows * kk, n * h * w * c) // _VEC < 2 ** 32, "{} patch "
+          "bytes: more than the kernel's 32-bit vector index", rows * kk)
     out = torch.empty((rows, kk), dtype=torch.int8, device=x.device)
     # float input, unless at k = 1 over all of C: the codes of x, quantized
     # once, then gathered
@@ -194,7 +213,7 @@ def _quant_im2col_cuda(x, k, sc, sx, c0, cg):
             _DTYPE_CODES[x.dtype], x.data_ptr(),
             None if scale is None else scale.data_ptr(), mode,
             None if scratch is None else scratch.data_ptr(),
-            out.data_ptr(), n, h, w, c, k, c0, cg, _stream(x))
+            out.data_ptr(), n, h, w, c, k, halo, c0, cg, _stream(x))
     _build.check(rc, "quant_im2col")
     quant_im2col.launches += 1
     return out
@@ -304,8 +323,8 @@ def image_blocks(n, h, w, kk):
 
 
 def int8_conv(x, w8, sw, dtype, *, sc=None, sx=None, mask=None, impl=None,
-              groups=1):
-    """Stride-1 SAME int8 conv, dequantized and masked -> (N,H,W,C_out).
+              groups=1, halo=0):
+    """Stride-1 SAME int8 conv, dequantized and masked -> (N,Ho,W,C_out).
 
     x (N,H,W,C): int8 codes, or float with sc (C,) or sx (N,) float32 as in
     `quant_im2col_plain`. w8 (k,k,C/groups,C_out) int8 HWIO, k odd, the
@@ -321,17 +340,23 @@ def int8_conv(x, w8, sw, dtype, *, sc=None, sx=None, mask=None, impl=None,
     A site whose group widths the kernels do not take (C/groups not a
     multiple of 16, C_out/groups not of 8) runs zero-padded to them, as the
     module docstring says; so does a GEMM of at most 16 rows.
+    halo: x's rows from the neighbouring shards above and below, as in
+    `quant_im2col_plain`; the output has Ho = H - 2 * halo rows, SAME in W,
+    and mask is (N, Ho, W, 1). Quantizing the haloed rows on the same
+    scale gives each the codes it has on its home shard.
     """
     if impl not in (None, "plain"):
         raise ValueError(f"impl must be None or 'plain', got {impl!r}")
     if impl == "plain":
         return composed_int8_conv(x, w8, sw, dtype, sc, sx, mask, groups,
-                                  plain=True)
+                                  plain=True, halo=halo)
     _on_cpu(x)
-    return torch.ops.codon.int8_conv(x, w8, sw, dtype, sc, sx, mask, groups)
+    return torch.ops.codon.int8_conv(x, w8, sw, dtype, sc, sx, mask, groups,
+                                     halo)
 
 
-def composed_int8_conv(x, w8, sw, dtype, sc, sx, mask, groups, plain):
+def composed_int8_conv(x, w8, sw, dtype, sc, sx, mask, groups, plain,
+                       halo=0):
     """`int8_conv` as three steps over blocks of images: the plain
     versions (plain=True), or the wrappers (the implementation of
     `codon::int8_conv`: the kernels on the card, the plain versions on the
@@ -348,7 +373,8 @@ def composed_int8_conv(x, w8, sw, dtype, sc, sx, mask, groups, plain):
     cog = co // groups
     if cg % _VEC or cog % _CO_ALIGN:
         return _padded_int8_conv(x, w8, sw, dtype, sc=sc, sx=sx, mask=mask,
-                                 plain=plain, groups=groups)
+                                 plain=plain, groups=groups, halo=halo)
+    ho = halo_rows_out(h, k, halo)
     kk = k * k * cg
     # column-major, as int8_gemm hands it to cuBLASLt; one (K, C_out/G)
     # matrix a group
@@ -360,8 +386,8 @@ def composed_int8_conv(x, w8, sw, dtype, sc, sx, mask, groups, plain):
         mask = mask.to(dtype).contiguous()
     if sx is not None:
         sx = sx.reshape(n).contiguous()
-    out = torch.empty((n, h, w, co), dtype=dtype, device=x.device)
-    for i, j in image_blocks(n, h, w, kk):
+    out = torch.empty((n, ho, w, co), dtype=dtype, device=x.device)
+    for i, j in image_blocks(n, ho, w, kk):
         sxb = None if sx is None else sx[i:j]
         xb = x[i:j]
         if groups > 1 and xb.dtype != torch.int8:
@@ -369,16 +395,16 @@ def composed_int8_conv(x, w8, sw, dtype, sc, sx, mask, groups, plain):
             xb = im2col(xb, 1, sc, sxb).view(xb.shape)
         for g, wmat in enumerate(wmats):
             if groups > 1:
-                patches = im2col(xb, k, c0=g * cg, cg=cg)
+                patches = im2col(xb, k, c0=g * cg, cg=cg, halo=halo)
             else:
-                patches = im2col(xb, k, sc, sxb)
+                patches = im2col(xb, k, sc, sxb, halo=halo)
             m = patches.shape[0]
             if m < _GEMM_MIN_ROWS:
                 patches = F.pad(patches, (0, 0, 0, _GEMM_PAD_ROWS - m))
             acc = int8_gemm(patches, wmat)[:m]
             del patches
             epilogue(acc, sw[g * cog:(g + 1) * cog].contiguous(), dtype,
-                     (j - i, h, w), sxb,
+                     (j - i, ho, w), sxb,
                      None if mask is None else mask[i:j], out=out[i:j],
                      o0=g * cog)
     return out
@@ -395,7 +421,8 @@ def _pad_groups(t, groups, width, value=0):
         *t.shape[:-1], groups * width).contiguous()
 
 
-def _padded_int8_conv(x, w8, sw, dtype, *, sc, sx, mask, plain, groups):
+def _padded_int8_conv(x, w8, sw, dtype, *, sc, sx, mask, plain, groups,
+                      halo=0):
     """`int8_conv` of a narrow site, on group widths padded to the kernels'
     (input channels to a multiple of 16, output channels to one of 8): zero
     input codes, unit scales on the padded channels, zero weights on the
@@ -411,7 +438,7 @@ def _padded_int8_conv(x, w8, sw, dtype, *, sc, sx, mask, plain, groups):
     wp = wp.reshape(k, k, cgp, groups * cogp)
     swp = _pad_groups(sw, groups, cogp, 1.0)
     out = composed_int8_conv(xp, wp, swp, dtype, scp, sx, mask, groups,
-                             plain)
+                             plain, halo)
     if cogp == cog:
         return out
     return out.reshape(*out.shape[:3], groups, cogp)[..., :cog].reshape(

@@ -22,9 +22,11 @@ NHWC layout at the public functions, and the same structure:
 The CAC stage runs either through the three CUDA kernels
 (`cac_impl="kernel"`, `kernels/cac.py`) or as plain PyTorch ops mirroring
 the JAX package's XLA stage (`cac_impl="torch"`). The default takes the
-kernels for CUDA tensors and the plain ops for CPU tensors. With autograd
-on, the kernels run through `CacStageFunction`, whose backward
-differentiates the plain stage.
+kernels for CUDA tensors and the plain ops for CPU tensors. The kernel
+stage is the Ops backend's `cac_stage`: `TorchOps` pools over the whole
+image (with autograd on, through `CacStageFunction`, whose backward
+differentiates the plain stage), and a spatially sharded backend
+(`parallel.ops.ShardedOps`) over every shard of it.
 
 The entry points run under `torch.no_grad()` for eval; training calls
 their grad-enabled siblings `codon_forward_train` and
@@ -47,7 +49,6 @@ from codon_tpu_torch.core.device import resolve_device
 from codon_tpu_torch.core.ops import TorchOps
 from codon_tpu_torch.core.params import (DTypePolicy, FP32, conv_kernel_init,
                                          full_fp32, linear_init)
-from codon_tpu_torch.kernels.cac import CacStageFunction, cac_stage
 
 
 @dataclasses.dataclass(frozen=True)
@@ -339,9 +340,9 @@ def _forward(params, depth, color, cfg, ops, mask):
                 cac_i["ch_w2"], cac_i["ch_b2"], cac_i["sp_w"])
         if not use_kernels:
             return cac_stage_torch(*args, mask=mask, ops=ops)
-        if torch.is_grad_enabled():
-            return CacStageFunction.apply(*args, mask)
-        return cac_stage(*args, mask)
+        # the backend's kernel stage: whole-image statistics, or under a
+        # spatially sharded backend statistics pooled over every shard
+        return ops.cac_stage(*args, mask=mask)
 
     def fuse_stage(out_f, fuse):
         if packed:
@@ -449,10 +450,10 @@ def _forward_fused(params, depth, color, cfg, ops, mask):
         out, out_c = T[..., :w], T[..., w:]
         if use_kernels:
             nxt = torch.empty_like(T)
-            cac_stage(out, out_c, inputs2[..., :w], inputs2[..., w:],
-                      cac_i["ch_w1"], cac_i["ch_b1"], cac_i["ch_w2"],
-                      cac_i["ch_b2"], cac_i["sp_w"], mask,
-                      dst=(nxt[..., :w], nxt[..., w:]))
+            ops.cac_stage(out, out_c, inputs2[..., :w], inputs2[..., w:],
+                          cac_i["ch_w1"], cac_i["ch_b1"], cac_i["ch_w2"],
+                          cac_i["ch_b2"], cac_i["sp_w"], mask=mask,
+                          dst=(nxt[..., :w], nxt[..., w:]))
             T = nxt
             continue
         ch = cac_channel_gate((out_c, out), cac_i["ch_w1"], cac_i["ch_b1"],

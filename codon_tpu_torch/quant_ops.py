@@ -2,9 +2,9 @@
 dynamic per-sample activation scales, the calibration backend that records
 the static scales, and the two fake-quant backends that train for them.
 
-The counterpart of `codon_tpu.quant_ops` but its sharded twins, with the
-same arithmetic op for op, so that the same inputs give the same int8
-codes and, in float32, the same bits:
+The counterpart of `codon_tpu.quant_ops` but its sharded twins (the int8
+ones are `parallel.quant`'s), with the same arithmetic op for op, so that
+the same inputs give the same int8 codes and, in float32, the same bits:
 
   Int8Ops         dynamic scales: each conv quantizes its input on a
                   per-image grid, absmax / 127 over the image's H, W, C
@@ -132,14 +132,15 @@ def quantize_static(x, sc):
                                         None).view(x.shape)
 
 
-def _int8_conv(x, w, *, mask, sx, impl, groups=1):
+def _int8_conv(x, w, *, mask, sx, impl, groups=1, halo=0):
     """Dynamic-scale int8 conv: sx (N,1,1,1) float32; weights quantized per
-    output channel; the output in x's dtype (float32 for a non-float x)."""
+    output channel; the output in x's dtype (float32 for a non-float x).
+    halo: x's rows from the sp neighbours (`kernels.quant.int8_conv`)."""
     out_dt = x.dtype if x.is_floating_point() else torch.float32
     sw = _w_scales(w).float()
     w8 = quantize_plain(w, sw)
     return int8_conv(x, w8, sw, out_dt, sx=sx, mask=mask, impl=impl,
-                     groups=groups)
+                     groups=groups, halo=halo)
 
 
 def _check_impl(quant_impl):

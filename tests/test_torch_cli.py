@@ -84,9 +84,22 @@ def test_eval_default_device_is_the_card():
 
 @pytest.mark.parametrize("flag", ["--tile-devices=2", "--dp-devices=2"])
 def test_unported_flags_are_not_in_the_parser(flag, capsys):
+    """The mesh flags belong to eval alone: sharded training is not ported
+    (ROADMAP A13b), so train refuses them, as JAX's train does."""
     with pytest.raises(SystemExit):
-        tcli._build_argparser().parse_args(["eval", flag])
+        tcli._build_argparser().parse_args(["train", flag])
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", ["--tile-devices=2", "--dp-devices=2"])
+def test_mesh_flags_parse_counts_and_refuse_malformed(flag, capsys):
+    """eval's mesh flags (tests/test_torch_parallel_cli.py runs them): each
+    parses to its count, and a malformed count is refused."""
+    args = tcli._build_argparser().parse_args(["eval", flag])
+    assert getattr(args, flag[2:].split("=")[0].replace("-", "_")) == 2
+    with pytest.raises(SystemExit):
+        tcli._build_argparser().parse_args(["eval", flag.replace("2", "x")])
+    assert "invalid int value" in capsys.readouterr().err
 
 
 # int8 eval against JAX's: the flip class of tests/test_torch_quant.py's

@@ -54,7 +54,15 @@ def test_card_files_exist():
                  "codon_tpu_torch/kernels/quant.py",
                  "codon_tpu_torch/checkpoint/torch_convert.py",
                  "codon_tpu_torch/models/attention.py",
-                 "codon_tpu_torch/models/zoo.py"):
+                 "codon_tpu_torch/models/zoo.py",
+                 "codon_tpu_torch/parallel/comm.py",
+                 "codon_tpu_torch/parallel/mesh.py",
+                 "codon_tpu_torch/parallel/ops.py",
+                 "codon_tpu_torch/parallel/quant.py",
+                 "codon_tpu_torch/parallel/launch.py",
+                 "codon_tpu_torch/parallel/tiling.py",
+                 "codon_tpu_torch/parallel/stitch.py",
+                 "codon_tpu_torch/parallel/dryrun.py"):
         assert need in names
     assert all(os.path.exists(p) for p in _card_files())
 
@@ -115,6 +123,41 @@ def test_port_imports_and_runs_without_forbidden_modules():
     res = subprocess.run(
         [sys.executable, "-c", _BLOCKED_RUN.format(forbidden=FORBIDDEN)],
         cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+_WORKER_RUN = r"""
+import sys
+for name in {forbidden!r}:
+    sys.modules[name] = None          # any import of these now raises
+import torch
+from codon_tpu_torch.models.variants import get_variant
+from codon_tpu_torch.parallel import MeshPool, make_tiled_forward
+from codon_tpu_torch.parallel.launch import loaded_modules
+if __name__ == "__main__":
+    v = get_variant("codon")
+    p = v.init(torch.Generator().manual_seed(0), "cpu")
+    with MeshPool(2, device="cpu", timeout_s=60) as pool:
+        out = make_tiled_forward(v, 2, 1, pool=pool)(
+            p, torch.rand(1, 9, 7, 1), torch.rand(1, 9, 7, 1), None)
+        assert out.shape == (1, 9, 7, 1)
+        worker = pool.call(loaded_modules)[1]
+    bad = sorted(m for m in worker if m.split(".")[0] in {forbidden!r})
+    assert "codon_tpu_torch.parallel.launch" in worker
+    print("ok" if not bad else bad)
+"""
+
+
+def test_spawned_worker_imports_no_forbidden_module(tmp_path):
+    """A mesh's worker rank is a fresh spawned process: after a sharded
+    forward it holds the port's modules and none of jax, codon_tpu, cv2
+    or PIL."""
+    script = tmp_path / "mesh_run.py"
+    script.write_text(_WORKER_RUN.format(forbidden=FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, str(script)], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
 

@@ -1091,3 +1091,70 @@ def test_cuda_exported_forward_equals_live(config, tmp_path):
             assert torch.equal(outs[0], outs[1])
     finally:
         torch.backends.cudnn.deterministic = saved
+
+
+# ---------------------------------------------------------------------------
+# the mesh: haloed int8 patches, the sharded CAC stage on one rank
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8", "window"])
+@pytest.mark.parametrize("k", [3, 5])
+@needs_cuda
+def test_cuda_haloed_quant_im2col_matches_plain(mode, k):
+    """A spatial shard's patches, read through its neighbours' halo rows
+    (0 <= halo <= k // 2), bitwise equal to the plain version's; so is
+    the composed int8 conv on them."""
+    from codon_tpu_torch.kernels import quant as kq
+    g = torch.Generator().manual_seed(13)
+    n, h, w, c = 2, 13, 11, 32
+    x = torch.randn((n, h, w, c), generator=g) * 3
+    sc = torch.rand(c, generator=g) * 0.05 + 0.01
+    if mode in ("int8", "window"):
+        x = kq.quantize_plain(x, sc)
+    elif mode == "bf16":
+        x = x.bfloat16()
+    args = {"int8": (None, None, 0, None), "window": (None, None, 16, 16)
+            }.get(mode, (sc, None, 0, None))
+    xd = x.cuda()
+    ad = tuple(a.cuda() if isinstance(a, torch.Tensor) else a for a in args)
+    for halo in range(k // 2 + 1):
+        got = kq.quant_im2col(xd, k, *ad, halo=halo)
+        want = kq.quant_im2col_plain(x, k, *args, halo=halo)
+        assert got.shape == want.shape == (n * (h - 2 * halo) * w,
+                                           k * k * (args[3] or c))
+        assert torch.equal(got.cpu(), want)
+    if mode != "window":
+        w8 = torch.randint(-127, 128, (k, k, c, 16), generator=g,
+                           dtype=torch.int8)
+        sw = torch.rand(16, generator=g) * 1e-3
+        r = k // 2
+        kw = {"sc": sc.cuda()} if mode != "int8" else {}
+        got = kq.int8_conv(xd, w8.cuda(), sw.cuda(), torch.float32, halo=r,
+                           **kw)
+        want = kq.int8_conv(xd, w8.cuda(), sw.cuda(), torch.float32,
+                            halo=r, impl="plain", **kw)
+        assert got.shape == (n, h - 2 * r, w, 16)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@needs_cuda
+def test_cuda_sharded_stage_one_rank_matches_cac_stage(dtype):
+    """The kernel stage over a one-rank sp group (gloo, its all-reduces
+    on CUDA tensors; the halo rows of the pooled planes zeros, as the
+    kernel's own SAME padding) equals the whole-image `cac_stage`
+    bitwise, one launch of each kernel."""
+    from codon_tpu_torch.parallel import MeshPool
+    towers, mask, _, _, _ = _cuda_inputs(dtype, 21)
+    ws = [to_torch(a, "cuda") for a in cac_weights(22)]
+    want = tcac.cac_stage(*towers, *ws, mask)
+    with MeshPool(1, device="cuda", backend="gloo", timeout_s=60) as pool:
+        mesh = pool.mesh(1, 1)
+        tcac.reset_launches()
+        got = tcac.cac_stage(*towers, *ws, mask, group=mesh.sp_group)
+        torch.cuda.synchronize()
+        assert tcac.launches() == {"cac_stats": 1, "spatial_logits": 1,
+                                   "cac_apply": 1}
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)
