@@ -170,7 +170,20 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
      sites (int8 input, and bf16 on a per-image scale; bitwise), and the
      two routes of a haloed int8 conv (the gather's halo rows, or SAME +
      crop), timed;
- 34. prints the card's line again, the kernels' JSON line (eight kernels;
+ 34. trains over the same 4 gloo ranks (`make_train_step(..., mesh=)`),
+     x4_ship4's weights on cli train's batch (b16 p64) at dp x sp = 2x2,
+     1x4 and 2x1 in bf16 and fp32, one large-patch form (b4 p256 at 1x4,
+     bf16), and static and dynamic QAT (x4_ship4_qat_static's act_scales,
+     x4_ship4_qat) at 2x2: each form's loss and summed gradient against
+     the single-device step's (MESH_TRAIN_TOLS; QAT MESH_QAT_LOSS_RTOL),
+     its parameters after one step (within MESH_TRAIN_PARAM_LRS x lr),
+     5 launches of each CAC kernel a step on every rank of the mesh and
+     none in the backward, the CAC stage called on shards only (sp > 1),
+     every rank's collective tallies a step, the replicas bitwise equal
+     on every rank after MESH_TRAIN_STEPS steps, and the wall ms a step
+     beside the single-device step's (ranks sharing one H100 over gloo);
+     then a one-rank NCCL group's step against the single-device one;
+ 35. prints the card's line again, the kernels' JSON line (eight kernels;
      each CAC and quant kernel's launches_by_path with the mesh paths, by
      rank), then the contract line {"ok": true, "device": {...}} as the
      last line of its output.
@@ -2003,9 +2016,10 @@ def run_cli_tools(data: str, tmp: str, main_out: str, main_summary):
 # phases 23-26: training on the card
 # ---------------------------------------------------------------------------
 
-def train_batch(data: str, step: int = 0):
+def train_batch(data: str, step: int = 0, patch: int = TRAIN_PATCH,
+                batch: int = TRAIN_BATCH):
     """The patch batch `cli train` draws at `step` from the scale dir (b16
-    p64, seed 0, the shipped degradation), on the card."""
+    p64 unless told, seed 0, the shipped degradation), on the card."""
     import torch
     from codon_tpu_torch.data.io import discover_pairs, imread_gray
     from codon_tpu_torch.data.pipeline import to_device
@@ -2015,14 +2029,14 @@ def train_batch(data: str, step: int = 0):
                   for n in names]
             for sub in ("input_label", "input_color", "input_depth")}
     sampler = PatchSampler(imgs["input_label"], imgs["input_color"],
-                           scale=4, patch=TRAIN_PATCH, batch=TRAIN_BATCH,
+                           scale=4, patch=patch, batch=batch,
                            degraded=imgs["input_depth"])
     dev = torch.device(DEVICE)
     return sampler, {k: to_device(v, dev)
                      for k, v in sampler.sample_at(step).items()}
 
 
-def train_step_for(dtype: str, cac_impl=None):
+def train_step_for(dtype: str, cac_impl=None, ops=None, mesh=None):
     import dataclasses
     from codon_tpu_torch.core.params import DTYPE_POLICIES
     from codon_tpu_torch.models.variants import get_variant
@@ -2031,7 +2045,8 @@ def train_step_for(dtype: str, cac_impl=None):
     if cac_impl is not None:
         v = dataclasses.replace(v, cfg=dataclasses.replace(
             v.cfg, cac_impl=cac_impl))
-    return make_train_step(v, TrainConfig(clip_norm=1.0))
+    return make_train_step(v, TrainConfig(clip_norm=1.0), ops=ops,
+                           mesh=mesh)
 
 
 def ship4_params():
@@ -2921,7 +2936,7 @@ MESH_FP32_TOL = (2e-4, 1e-3)
 LARGE_FRAME = (1480, 1852)
 STITCH_TILE = 512           # tile_stitch_infer's default tile height
 STITCH_MEAN_TOL = 5e-3
-MESH_TIME_ITERS = 3
+MESH_TIME_ITERS = 2         # timed forwards a form (after one warm-up)
 # the k > 1 quantized convs whose input is float in the static int8
 # forward (conv_input(_c), conv3/conv6 x 5, conv7, conv10 x 3, conv11): on
 # a shard each quantizes its rows first (a quant_im2col call at k = 1) so
@@ -3340,6 +3355,224 @@ def run_nccl_setup(vb, p, d, c, m, single):
                                                single["fp32"])})
         need(res["comm"]["all_sum"]["transport"] == ["nccl"],
              "the one-rank NCCL stage did not all-reduce over NCCL")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 34: sharded training (`make_train_step(..., mesh=)`)
+# ---------------------------------------------------------------------------
+
+# the step's forms over the 4 gloo ranks sharing the card, at the training
+# shape (b16 p64), and one large-patch form: 4 patches of 256 x 256 over
+# 1 x 4 (64-row shards), bf16
+MESH_TRAIN_FORMS = ((2, 2), (1, 4), (2, 1))
+MESH_TRAIN_LARGE = (4, 256, (1, 4))
+# the sharded step against the single-device one, same weights and batch:
+# TRAIN_TOLS' (loss rtol, the worst leaf's max |d| over its max |g|, the
+# gradient tree's relative L2 distance), for the same reason: the shards'
+# convs, the all-reduced pools and the gradient's sum over the ranks run
+# in other float32 orders, ~1e-7 of a value, and a ReLU that flips on one
+# side only moves its whole path; bf16 also no more than BF16_CLASS times
+# farther from the fp32 single-device gradient than the bf16
+# single-device step is
+MESH_TRAIN_TOLS = TRAIN_TOLS
+# the parameters after one step against the single-device step's: Adam's
+# first update moves an element by about lr whatever its gradient's size,
+# so where float32 leaves the gradient's sign undetermined (|g| ~ 0) the
+# two may land 2 lr apart (cli train's lr 1e-4), and nowhere farther
+MESH_TRAIN_PARAM_LRS = 2
+# steps each form's replicas take before they are compared bitwise
+MESH_TRAIN_STEPS = 3
+# QAT sharded against single, relative loss: JAX's bound
+# (__graft_entry__.py, tests/test_train.py)
+MESH_QAT_LOSS_RTOL = 5e-3
+
+
+def copy_tree(tree):
+    return {k: copy_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def max_tree_diff(a, b) -> float:
+    from codon_tpu_torch.train.trainer import tree_items
+    return max(float((x.float() - y.float()).abs().max())
+               for (_, x), (_, y) in zip(tree_items(a), tree_items(b)))
+
+
+def need_mesh_train_counts(counts, dp, sp, steps, what):
+    """Every rank of the mesh launched each CAC kernel 5 times a step (all
+    in the forward: the backward recomputes the plain stage) and called
+    the stage on shards only when sp > 1 (whole images when sp = 1);
+    ranks outside the mesh did nothing."""
+    for rank, c in enumerate(counts):
+        inside = rank < dp * sp
+        want = 5 * steps if inside else 0
+        for name in ("cac_stats", "spatial_logits", "cac_apply"):
+            need(c["cac"][name] == want, f"{what}: rank {rank} launched "
+                 f"{name} {c['cac'][name]} times; expected {want}")
+        stages = ({"whole": 0, "shard": want} if sp > 1
+                  else {"whole": want, "shard": 0})
+        need(c["stages"] == stages, f"{what}: rank {rank} called the CAC "
+             f"stage {c['stages']}; expected {stages}")
+
+
+def mesh_train_form(pool, dtype, dp, sp, params, batch, single, fp32_grads,
+                    paths, ops=None, label=None):
+    """One form of the sharded step against the single-device one (single:
+    (loss, grads, params after one step, ms a step)) -> its row. The
+    gradient and the counts come from the mesh's value_and_grad (rank 0's
+    summed gradient; every rank's tallies set to 0 just before, read just
+    after); then MESH_TRAIN_STEPS steps from a copy of params: the first
+    against the single step's parameters, the rest timed, their launches
+    counted, the replicas compared."""
+    import torch
+    from codon_tpu_torch.parallel.launch import rank_counts, reset_rank_counts
+    from codon_tpu_torch.parallel.train import replica_digest
+    what = label or f"mesh train {dtype} {dp}x{sp}"
+    mesh = pool.mesh(dp, sp)
+    step, opt = train_step_for(dtype, ops=ops, mesh=mesh)
+    pool.call(reset_rank_counts)
+    loss, grads = step.value_and_grad(params, batch)
+    torch.cuda.synchronize()
+    counts = pool.call(rank_counts)
+    need_mesh_train_counts(counts, dp, sp, 1, what)
+    l1, g1, p1, single_ms = single
+    tree, worst, worst_path = grad_distance(grads, g1, paths)
+    row = {"form": f"{dp}x{sp}", "dtype": dtype, "loss": float(loss),
+           "loss_single": float(l1),
+           "loss_rel": abs(float(loss) - float(l1)) / abs(float(l1)),
+           "grad_tree_rel": tree, "grad_worst_rel": worst,
+           "grad_worst_leaf": worst_path, "counts": counts,
+           "single_ms": single_ms}
+    need(math.isfinite(row["loss"]), f"{what}: loss {row['loss']}")
+    if ops is None:
+        loss_tol, leaf_tol, tree_tol = MESH_TRAIN_TOLS[dtype]
+        need(row["loss_rel"] <= loss_tol,
+             f"{what}: loss {row['loss']} vs single {row['loss_single']}")
+        need(worst <= leaf_tol and tree <= tree_tol,
+             f"{what} gradients: tree {tree:.3e} (> {tree_tol}?), leaf "
+             f"{worst_path} {worst:.3e} of its max |g| (> {leaf_tol}?)")
+        if dtype == "bf16" and fp32_grads is not None:
+            row["sharded_vs_fp32"] = grad_distance(grads, fp32_grads,
+                                                   paths)[0]
+            row["single_vs_fp32"] = grad_distance(g1, fp32_grads, paths)[0]
+            need(row["sharded_vs_fp32"]
+                 <= BF16_CLASS * row["single_vs_fp32"],
+                 f"{what}: {row['sharded_vs_fp32']:.3e} from the fp32 "
+                 f"gradient, the single bf16 step {row['single_vs_fp32']:.3e}")
+    else:
+        need(row["loss_rel"] < MESH_QAT_LOSS_RTOL,
+             f"{what}: loss {row['loss']} vs single {row['loss_single']} "
+             f"(rel {row['loss_rel']:.2e} >= {MESH_QAT_LOSS_RTOL})")
+    p = copy_tree(params)
+    state = opt.init(p)
+    p, state, m = step(p, state, batch)
+    row["param_max_abs_diff"] = max_tree_diff(p, p1)
+    bound = MESH_TRAIN_PARAM_LRS * 1e-4 + 1e-6
+    need(row["param_max_abs_diff"] <= bound,
+         f"{what}: params after a step max |d| {row['param_max_abs_diff']:.3e}"
+         f" from the single step's (> {bound:.1e})")
+    pool.call(reset_rank_counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH_TRAIN_STEPS - 1):
+        p, state, m = step(p, state, batch)
+    float(m["loss"])
+    row["ms"] = (time.perf_counter() - t0) * 1e3 / (MESH_TRAIN_STEPS - 1)
+    need_mesh_train_counts(pool.call(rank_counts), dp, sp,
+                           MESH_TRAIN_STEPS - 1, what + " steps")
+    digests = pool.call(replica_digest, step.slot)[:mesh.size]
+    need(len(set(digests)) == 1 and state["count"] == MESH_TRAIN_STEPS,
+         f"{what}: the {mesh.size} replicas differ after "
+         f"{MESH_TRAIN_STEPS} steps")
+    row["replicas"] = f"{mesh.size} bitwise equal after {MESH_TRAIN_STEPS}"
+    return row
+
+
+def single_train(dtype, params, batch, ops=None):
+    """The single-device step: (loss, grads, params after one step from a
+    copy, ms a step back to back)."""
+    import torch
+    step, opt = train_step_for(dtype, ops=ops)
+    loss, grads = step.value_and_grad(params, batch)
+    p = copy_tree(params)
+    state = opt.init(p)
+    p1, state, _ = step(p, state, batch)
+    p1 = copy_tree(p1)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: step(p, state, batch), 1, 3)
+    return loss, grads, p1, ms
+
+
+def run_mesh_train_phase(kc, data: str):
+    """Phase 34: the sharded training step (`make_train_step(...,
+    mesh=)`) over 4 gloo ranks sharing the card, each form against the
+    single-device step on x4_ship4's weights and `cli train`'s batch:
+    bf16 and fp32 at MESH_TRAIN_FORMS, the large-patch form, static QAT
+    (x4_ship4_qat_static's act_scales) and dynamic QAT (x4_ship4_qat) at
+    2 x 2; then a one-rank NCCL group's step."""
+    import torch
+    from codon_tpu_torch import quant_ops as tq
+    from codon_tpu_torch.checkpoint.native import load_npz, params_from_numpy
+    from codon_tpu_torch.parallel import MeshPool, comm
+    from codon_tpu_torch.train.trainer import tree_items
+    res = {"forms": []}
+    _, batch = train_batch(data)
+    params = ship4_params()
+    paths = [p for p, _ in tree_items(params)]
+    singles = {d: single_train(d, params, batch) for d in ("fp32", "bf16")}
+    fp32_grads = singles["fp32"][1]
+    n, patch, (ldp, lsp) = MESH_TRAIN_LARGE
+    _, big = train_batch(data, 0, patch=patch, batch=n)
+    big_single = single_train("bf16", params, big)
+    tree = load_npz(CKPT_INT8)
+    scales = params_from_numpy(tree.pop("act_scales"), DEVICE)
+    p8 = params_from_numpy(tree, DEVICE)
+    p8d = params_from_numpy(load_npz(CKPT_INT8_DYN), DEVICE)
+    qat = {"static": (tq.FakeQuantStaticOps(scales), p8),
+           "dynamic": (tq.FakeQuantOps(), p8d)}
+    qat_single = {k: single_train("bf16", p, batch, ops=o)
+                  for k, (o, p) in qat.items()}
+    t0 = time.time()
+    with MeshPool(MESH_WORLD, device=DEVICE, backend="gloo",
+                  timeout_s=300) as pool:
+        res["pool_start_s"] = time.time() - t0
+        for dp, sp in MESH_TRAIN_FORMS:
+            for dtype in ("bf16", "fp32"):
+                res["forms"].append(mesh_train_form(
+                    pool, dtype, dp, sp, params, batch, singles[dtype],
+                    fp32_grads, paths))
+        row = mesh_train_form(pool, "bf16", ldp, lsp, params, big,
+                              big_single, None, paths,
+                              label=f"mesh train bf16 {ldp}x{lsp} b{n} "
+                                    f"p{patch}")
+        row["dtype"] = f"bf16 b{n} p{patch}"
+        res["forms"].append(row)
+        for kind, (o, p) in qat.items():
+            row = mesh_train_form(pool, "bf16", 2, 2, p, batch,
+                                  qat_single[kind], None, paths, ops=o,
+                                  label=f"mesh train QAT {kind} 2x2")
+            row["dtype"] = f"bf16 QAT {kind}"
+            res["forms"].append(row)
+    need(not any(proc.is_alive() for proc in pool._procs),
+         "a mesh rank outlived its pool")
+    # NCCL: one rank, its loss and gradient all-reduces over NCCL
+    with MeshPool(1, device=DEVICE, backend="nccl", timeout_s=120) as pool:
+        step, _ = train_step_for("bf16", mesh=pool.mesh(1, 1))
+        comm.reset_counts()
+        loss, grads = step.value_and_grad(params, batch)
+        l1, g1 = singles["bf16"][:2]
+        tree_rel, worst, _ = grad_distance(grads, g1, paths)
+        res["nccl"] = {"transport": pool.transport, "comm": comm.counts(),
+                       "loss_rel": abs(float(loss) - float(l1))
+                       / abs(float(l1)),
+                       "grad_tree_rel": tree_rel, "grad_worst_rel": worst}
+        need(res["nccl"]["comm"]["all_sum"]["transport"] == ["nccl"],
+             "the one-rank NCCL step did not all-reduce over NCCL")
+        loss_tol, leaf_tol, tree_tol = MESH_TRAIN_TOLS["bf16"]
+        need(res["nccl"]["loss_rel"] <= loss_tol and worst <= leaf_tol
+             and tree_rel <= tree_tol,
+             f"the one-rank NCCL step vs single: {res['nccl']}")
     return res
 
 
@@ -3904,7 +4137,42 @@ def main() -> int:
                 f"per-image scale, masked")
         say(f"mesh phase: {time.time() - t0:.1f} s")
 
-    # 34. results
+        # 34. sharded training on 4 gloo ranks sharing the card
+        t0 = time.time()
+        mt = run_mesh_train_phase(kc, data)
+        say(f"mesh train pool: {MESH_WORLD} gloo ranks on one card, started "
+            f"in {mt['pool_start_s']:.1f} s")
+        for r in mt["forms"]:
+            say(f"mesh train {r['dtype']} {r['form']}: loss sharded "
+                f"{r['loss']:.6f} single {r['loss_single']:.6f} (rel "
+                f"{r['loss_rel']:.2e}); gradient tree rel L2 "
+                f"{r['grad_tree_rel']:.2e}, worst leaf "
+                f"{r['grad_worst_leaf']} {r['grad_worst_rel']:.2e} of its "
+                f"max |g|"
+                + (f"; from the fp32 gradient: sharded "
+                   f"{r['sharded_vs_fp32']:.3e}, single "
+                   f"{r['single_vs_fp32']:.3e}" if "sharded_vs_fp32" in r
+                   else "")
+                + f"; params after a step max |d| "
+                  f"{r['param_max_abs_diff']:.3e} (<= "
+                  f"{MESH_TRAIN_PARAM_LRS} lr); replicas {r['replicas']} "
+                  f"steps; wall {r['ms']:.2f} ms a step, single "
+                  f"{r['single_ms']:.2f} ms, ranks sharing one H100 over "
+                  f"gloo ({card}); CAC launches a step by rank "
+                  f"{[c['cac']['cac_stats'] for c in r['counts']]} (none in "
+                  f"the backward), stage calls by rank "
+                  f"{[c['stages'] for c in r['counts']]}")
+            say(f"mesh train {r['dtype']} {r['form']} collectives a step by "
+                f"rank: " + "; ".join(f"rank {i} {comm_text(c['comm'])}"
+                                      for i, c in enumerate(r["counts"])))
+        nc = mt["nccl"]
+        say(f"mesh train nccl: one-rank NCCL group, bf16 step vs single: "
+            f"loss rel {nc['loss_rel']:.2e}, gradient tree rel L2 "
+            f"{nc['grad_tree_rel']:.2e}, worst leaf {nc['grad_worst_rel']:.2e}"
+            f"; transport {nc['transport']}; {comm_text(nc['comm'])}")
+        say(f"mesh train phase: {time.time() - t0:.1f} s")
+
+    # 35. results
     int8_paths = {"eval_int8": i8_counts,
                   "eval_int8_tta8_device_metrics": i8t_counts,
                   "eval_int8_ensemble2_tta": i8e_counts,
@@ -3931,6 +4199,9 @@ def main() -> int:
     mesh_paths = {f"mesh_{r['dtype'].replace(' ', '_')}_{r['form']}":
                   r["counts"] for r in mesh["forms"]}
     mesh_paths["mesh_large_frame_bf16_1x2"] = mesh["large"]["counts"]
+    # the sharded training step's, a step a rank (forward only)
+    mesh_paths.update({f"mesh_train_{r['dtype'].replace(' ', '_')}_"
+                       f"{r['form']}": r["counts"] for r in mt["forms"]})
     kernels = []
     for name in ("cac_stats", "spatial_logits", "cac_apply"):
         t = timings[name]

@@ -293,6 +293,23 @@ def launches() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
+# calls of the composed stage on whole images ("whole") and on a spatial
+# shard with its statistics pooled over the group ("shard"), on any device
+_STAGE_CALLS = {"whole": 0, "shard": 0}
+
+
+def reset_stage_calls() -> None:
+    for k in _STAGE_CALLS:
+        _STAGE_CALLS[k] = 0
+
+
+def stage_calls() -> dict:
+    """{"whole", "shard"}: `cac_stage` calls since the last reset, without
+    and with a group. A sharded forward must make no "whole" call: one
+    shard's pools would be finite, plausible and wrong."""
+    return dict(_STAGE_CALLS)
+
+
 # ---------------------------------------------------------------------------
 # the composed stage
 # ---------------------------------------------------------------------------
@@ -317,6 +334,7 @@ def cac_stage(out, out_c, inputs, inputs_c, w1, b1, w2, b2, sp_w, mask=None,
     the towers hold whole images.
     """
     n, h, w, c = out.shape
+    _STAGE_CALLS["whole" if group is None else "shard"] += 1
     ch_sum, ch_max, cmax, cmean = cac_stats(out, out_c, mask)
     if mask is not None:
         denom = mask.float().sum((1, 2, 3))[:, None, None]
@@ -359,26 +377,39 @@ class CacStageFunction(torch.autograd.Function):
     `jnp.max` / `jnp.maximum` do. The mask gets no gradient. No kernel
     runs in the backward.
 
-    apply(out, out_c, inputs, inputs_c, w1, b1, w2, b2, sp_w, mask)
-        -> (new_out, new_out_c)
+    group: None for whole images; the sp group when the towers are one
+    spatial shard. The forward is then `cac_stage(..., group=group)`, its
+    statistics all-reduced over the group, and the backward recomputes
+    the stage under `parallel.ops.ShardedOps` over the same group, whose
+    differentiable collectives (`parallel.comm`: the pools' all_sum, the
+    channel maxes' global max, the pooled maps' 2-row halo) run forward
+    again in the recompute and transposed in its gradient.
+
+    apply(out, out_c, inputs, inputs_c, w1, b1, w2, b2, sp_w, mask,
+          group=None) -> (new_out, new_out_c)
     """
 
     @staticmethod
     def forward(ctx, out, out_c, inputs, inputs_c, w1, b1, w2, b2, sp_w,
-                mask):
+                mask, group=None):
         ctx.save_for_backward(out, out_c, inputs, inputs_c, w1, b1, w2, b2,
                               sp_w, mask)
+        ctx.group = group
         return cac_stage(out, out_c, inputs, inputs_c, w1, b1, w2, b2, sp_w,
-                         mask)
+                         mask, group=group)
 
     @staticmethod
     def backward(ctx, g_out, g_out_c):
         from codon_tpu_torch.models.codon_net import cac_stage_torch
+        ops = None
+        if ctx.group is not None:
+            from codon_tpu_torch.parallel.ops import ShardedOps
+            ops = ShardedOps(group=ctx.group)
         *xs, mask = ctx.saved_tensors
         need = ctx.needs_input_grad[:len(xs)]
         with torch.enable_grad():
             xs = [x.detach().requires_grad_(n) for x, n in zip(xs, need)]
-            new = cac_stage_torch(*xs, mask=mask)
+            new = cac_stage_torch(*xs, mask=mask, ops=ops)
             grads = iter(torch.autograd.grad(
                 new, [x for x, n in zip(xs, need) if n], (g_out, g_out_c)))
-        return (*(next(grads) if n else None for n in need), None)
+        return (*(next(grads) if n else None for n in need), None, None)

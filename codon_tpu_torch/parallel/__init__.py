@@ -1,6 +1,8 @@
-"""Multi-device inference: the dp x sp mesh of `torch.distributed` ranks,
-the halo-exchange Ops backend, sharded forwards and tile-and-stitch; the
-counterpart of `codon_tpu.parallel`."""
+"""Multi-device inference and training: the dp x sp mesh of
+`torch.distributed` ranks, the halo-exchange Ops backend with
+differentiable collectives, sharded forwards, the sharded training step
+(`parallel.train`, reached through `make_train_step(..., mesh=)`) and
+tile-and-stitch; the counterpart of `codon_tpu.parallel`."""
 from codon_tpu_torch.parallel.launch import MeshPool
 from codon_tpu_torch.parallel.mesh import make_mesh
 from codon_tpu_torch.parallel.ops import ShardedOps

@@ -1,12 +1,12 @@
-"""The sharded eval forward over a dp x sp mesh, each form against
-single-device execution, on tiny shapes.
+"""The sharded eval forward and training step over a dp x sp mesh, each
+form against single-device execution, on tiny shapes.
 
     python -m codon_tpu_torch.parallel.dryrun --devices N [--device cpu]
         [--dist-backend gloo|nccl]
 
-The eval half of the JAX package's `dryrun_multichip`
-(`__graft_entry__.py:120-291`): N ranks as dp x sp (dp = 2 when N is even,
-sp = N / dp), `codon` from a seeded init in float32, and
+The JAX package's `dryrun_multichip` (`__graft_entry__.py:120-291`): N
+ranks as dp x sp (dp = 2 when N is even, sp = N / dp), `codon` from a
+seeded init in float32, and
 
   float      the sharded forward against the single-device one
   int8       static scales calibrated on the batch, `Int8StaticShardedOps`
@@ -14,11 +14,15 @@ sp = N / dp), `codon` from a seeded init in float32, and
   TTA8       the 8-transform self-ensemble of a 2-member ensemble over the
              mesh against the same on one device (a square frame, so the
              transposed quartet's H divides sp too)
+  train      one full training step over the mesh (forward, backward,
+             optimizer), its loss finite
+  QAT        the sharded step's loss on the frozen static grid
+             (`FakeQuantStaticShardedOps`) against the single-device
+             `FakeQuantStaticOps` step's
 
 each within the bounds of TOLS. It prints one line and exits non-zero on
-a failed check. The training step of the JAX dryrun comes with sharded
-training (ROADMAP A13b). On the card the ranks run the CUDA kernels; with
-one card, pass --dist-backend gloo (the ranks share it).
+a failed check. On the card the ranks run the CUDA kernels; with one
+card, pass --dist-backend gloo (the ranks share it).
 """
 from __future__ import annotations
 
@@ -35,7 +39,9 @@ from codon_tpu_torch.models.variants import get_variant
 from codon_tpu_torch.parallel.launch import MeshPool
 from codon_tpu_torch.parallel.quant import static_int8_ops
 from codon_tpu_torch.parallel.tiling import make_tiled_forward
-from codon_tpu_torch.quant_ops import Int8StaticOps, calibrate_act_scales
+from codon_tpu_torch.quant_ops import (FakeQuantStaticOps, Int8StaticOps,
+                                       calibrate_act_scales)
+from codon_tpu_torch.train.trainer import TrainConfig, make_train_step
 
 # (atol, rtol) of each check, elementwise |sharded - single| <= atol +
 # rtol |single|: tests/test_parallel.py's for float32 and TTA8 (float32
@@ -43,6 +49,10 @@ from codon_tpu_torch.quant_ops import Int8StaticOps, calibrate_act_scales
 # static int8 JAX's dryrun bound, 2e-3 (a code flipped at a rounding
 # boundary)
 TOLS = {"float": (2e-4, 1e-3), "int8": (2e-3, 1e-3), "tta8": (2e-4, 1e-3)}
+# QAT's sharded loss against the single-device loss, relative: JAX's
+# dryrun bound (fake-quant turns the sharded convs' float32 noise into
+# one-code flips at rounding boundaries)
+QAT_LOSS_RTOL = 5e-3
 
 
 def _scaled(tree, f):
@@ -63,9 +73,10 @@ def _check(key, got, want) -> float:
 
 
 def dryrun(n_devices: int, device="cuda", backend=None) -> dict:
-    """Run the three checks -> {"dp", "sp", "float", "int8", "tta8"}: the
-    max |sharded - single| of each. Raises AssertionError on a failed
-    bound."""
+    """Run the checks -> {"dp", "sp", "float", "int8", "tta8"}: the max
+    |sharded - single| of each; "train_loss", the mesh step's loss;
+    "qat_dloss", |sharded - single| of the QAT loss. Raises AssertionError
+    on a failed bound."""
     dev = resolve_device(device)
     dp = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
     sp = n_devices // dp
@@ -116,6 +127,28 @@ def dryrun(n_devices: int, device="cuda", backend=None) -> dict:
         outt = make_tta_forward(ens_mesh, transforms=8)(plist, dt, ct, mt)
         reft = make_tta_forward(ens_single, transforms=8)(plist, dt, ct, mt)
         res["tta8"] = _check("tta8", outt, reft)
+
+        # one full training step over the mesh, then QAT on the frozen
+        # static grid against the single-device step
+        batch = {"depth": d, "color": c, "label": rand(B, H, W, 1),
+                 "mask": m}
+        mesh = pool.mesh(dp, sp)
+        step, opt = make_train_step(variant, TrainConfig(), mesh=mesh)
+        p = _scaled(params, 1.0)
+        _, _, metrics = step(p, opt.init(p), batch)
+        res["train_loss"] = float(metrics["loss"])
+        if not np.isfinite(res["train_loss"]):
+            raise AssertionError(f"non-finite loss: {res['train_loss']}")
+        qat = FakeQuantStaticOps(scales)
+        q1, _ = make_train_step(variant, TrainConfig(),
+                                ops=qat)[0].value_and_grad(params, batch)
+        qn, _ = make_train_step(variant, TrainConfig(), ops=qat,
+                                mesh=mesh)[0].value_and_grad(params, batch)
+        res["qat_dloss"] = abs(float(q1) - float(qn))
+        qrel = res["qat_dloss"] / max(abs(float(q1)), 1e-9)
+        if qrel >= QAT_LOSS_RTOL:
+            raise AssertionError(f"QAT sharded loss != single (rel "
+                                 f"{qrel:.2e})")
     return res
 
 
@@ -131,7 +164,8 @@ def main(argv=None) -> int:
           f"{args.device}, eval sharded==single (max|diff| "
           f"{r['float']:.2e}), int8-static sharded==single (max|diff| "
           f"{r['int8']:.2e}), tta8+2-member-ensemble sharded==single "
-          f"(max|diff| {r['tta8']:.2e}) ok")
+          f"(max|diff| {r['tta8']:.2e}), train loss={r['train_loss']:.5f}, "
+          f"QAT sharded==single (|dloss| {r['qat_dloss']:.2e}) ok")
     return 0
 
 

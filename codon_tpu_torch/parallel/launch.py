@@ -17,6 +17,13 @@ collective, so an idle pool never meets the group's timeout. Commands:
            then scatters the (dp, sp) blocks of the padded batch (depth,
            colour and mask packed in one float32 tensor), every rank of the
            mesh runs its block, and rank 0 gathers the outputs
+  trainer  a training step's variant, config and backend, and the
+           parameter tree and optimizer state every rank keeps a replica
+           of, sent once into a slot, pickled by value (`parallel.train`);
+           a step is then a `shard_map` without the gather: rank 0
+           scatters the blocks of [depth | color | label | mask], every
+           rank of the mesh runs its block's step, and rank 0 keeps its
+           own result
   call     a module-level function of the package run on every rank (the
            launch and collective counters)
   stop     a clean shutdown
@@ -99,6 +106,7 @@ class _Rank:
         self.device = device
         self.meshes = {}
         self.members = []
+        self.trainers = []
 
     def add_mesh(self, dp, sp):
         self.meshes[(dp, sp)] = make_mesh((dp, sp))
@@ -107,6 +115,15 @@ class _Rank:
     def add_member(self, spec, params):
         self.members.append((spec, params))
         return len(self.members) - 1
+
+    def set_trainer(self, slot, entry):
+        """Keep a trainer's replica in `slot` (None: a new slot) -> the
+        slot."""
+        if slot is None:
+            self.trainers.append(entry)
+            return len(self.trainers) - 1
+        self.trainers[slot] = entry
+        return slot
 
 
 _RANK: Optional[_Rank] = None
@@ -148,16 +165,18 @@ def _as_tuple(out):
     return tuple(out) if isinstance(out, (tuple, list)) else (out,)
 
 
-def _map_on_rank(key, specs, fn, consts):
+def _map_on_rank(key, specs, fn, consts, gather=True):
     """A worker's part of `MeshPool.shard_map`: its blocks from rank 0, fn
-    on them, the outputs back to rank 0; nothing outside the mesh."""
+    on them, the outputs back to rank 0 (with `gather`); nothing outside
+    the mesh."""
     mesh = _RANK.meshes[key]
     if not mesh.member:
         return None
     blocks = comm.p2p("scatter", [], [(shape, dtype, _RANK.device, 0)
                                       for shape, dtype in specs])
-    outs = _as_tuple(fn(mesh, *blocks, *consts))
-    comm.p2p("gather", [(o, 0) for o in outs], [])
+    outs = fn(mesh, *blocks, *consts)
+    if gather:
+        comm.p2p("gather", [(o, 0) for o in _as_tuple(outs)], [])
     return None
 
 
@@ -183,6 +202,10 @@ def _worker(rank, world, init_method, backend, device_type, timeout_s,
                 spec, params = args
                 result = _RANK.add_member(spec,
                                           _to_device(params, _RANK.device))
+            elif cmd == "trainer":
+                slot, entry = args
+                result = _RANK.set_trainer(slot,
+                                           _to_device(entry, _RANK.device))
             elif cmd == "map":
                 result = _map_on_rank(*args)
             elif cmd == "call":
@@ -397,14 +420,31 @@ class MeshPool:
             local=lambda: self._state.add_member(spec, params))
         return mine
 
-    def shard_map(self, fn: Callable, mesh, *tensors, consts=()):
+    def set_trainer(self, slot, entry) -> int:
+        """Send a training step's state to every rank into `slot` (None: a
+        new one) -> the slot: entry is a dict whose tensors (a parameter
+        tree, an optimizer state) each worker keeps a copy of on its
+        device; rank 0 keeps the caller's own (`parallel.train`)."""
+        payload = (slot, _to_cpu(entry))
+        mine, _ = self._command(
+            "trainer", payload,
+            local=lambda: self._state.set_trainer(slot, entry))
+        return mine
+
+    def trainer(self, slot):
+        """Rank 0's entry in a trainer slot."""
+        return self._state.trainers[slot]
+
+    def shard_map(self, fn: Callable, mesh, *tensors, consts=(),
+                  gather=True):
         """fn over `mesh`, as JAX's shard_map: each tensor (B, H, ...) on
         rank 0 is cut into (dp, sp) blocks along its first two axes, the
         rank at (d, s) runs fn(its mesh, *its blocks, *consts), and the
         outputs (a tensor or a tuple of them, (B/dp, H/sp, ...) each) are
         put back together on rank 0. fn is a module-level function of the
         package (pickled by reference), consts are pickled by value; B must
-        divide by dp and H by sp."""
+        divide by dp and H by sp. gather=False: nothing comes back but
+        rank 0's own result of fn, whatever it is."""
         dp, sp = mesh.dp, mesh.sp
         B, H = tensors[0].shape[:2]
         bl, hl = B // dp, H // sp
@@ -420,8 +460,11 @@ class MeshPool:
             others = range(1, mesh.size)
             comm.p2p("scatter", [(block(t, r), r) for r in others
                                  for t in tensors], [])
-            mine = _as_tuple(fn(mesh, *(block(t, 0).contiguous()
-                                        for t in tensors), *consts))
+            mine = fn(mesh, *(block(t, 0).contiguous() for t in tensors),
+                      *consts)
+            if not gather:
+                return mine
+            mine = _as_tuple(mine)
             got = comm.p2p("gather", [], [(o.shape, o.dtype, o.device, r)
                                           for r in others for o in mine])
             outs = [[o] + got[i::len(mine)] for i, o in enumerate(mine)]
@@ -429,7 +472,8 @@ class MeshPool:
                                 for d in range(dp)], 0) for per in outs]
             return whole[0] if len(whole) == 1 else tuple(whole)
 
-        out, _ = self._command("map", (key, specs, fn, consts), local=local)
+        out, _ = self._command("map", (key, specs, fn, consts, gather),
+                               local=local)
         return out
 
     def forward(self, member: int, mesh, depth, color, mask):
@@ -450,16 +494,18 @@ class MeshPool:
 
 
 def rank_counts() -> dict:
-    """This rank's tallies: CAC and quant kernel launches (on the card) and
-    the collectives' calls, bytes and transports."""
+    """This rank's tallies: CAC and quant kernel launches (on the card),
+    the CAC stage's calls on whole images and on a shard, and the
+    collectives' calls, bytes and transports."""
     from codon_tpu_torch.kernels import cac, quant
     return {"cac": cac.launches(), "quant": quant.launches(),
-            "comm": comm.counts()}
+            "stages": cac.stage_calls(), "comm": comm.counts()}
 
 
 def reset_rank_counts() -> None:
     from codon_tpu_torch.kernels import cac, quant
     cac.reset_launches()
+    cac.reset_stage_calls()
     quant.reset_launches()
     comm.reset_counts()
 

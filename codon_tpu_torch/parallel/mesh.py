@@ -10,6 +10,9 @@ the pair of subgroups every rank needs:
   sp  the image's H axis sharded over ranks, halo-exchange convs and
       all-reduced CAC statistics over the rank's sp group
 
+and the group of all dp * sp ranks, over which a sharded training step
+sums its loss and its gradients.
+
 Rank d * sp + s holds coordinate (d, s): the first dp * sp ranks of the
 world form the mesh, the rest sit it out.
 """
@@ -30,6 +33,7 @@ class Mesh:
     sp_index: Optional[int]
     sp_group: Any = None           # the ranks of this rank's image row
     dp_group: Any = None           # the ranks of this rank's sp column
+    group: Any = None              # every rank of the mesh
     pool: Any = None               # rank 0's MeshPool, which drives it
 
     @property
@@ -78,4 +82,7 @@ def make_mesh(axis_sizes: Optional[Sequence[int]] = None,
         g = dist.new_group([d * sp + s for d in range(dp)])
         if mesh.sp_index == s:
             mesh.dp_group = g
+    g = dist.new_group(list(range(need)))
+    if inside:
+        mesh.group = g
     return mesh

@@ -14,6 +14,12 @@ sharded forward equal the single-device one:
                  stage) and in `cac_stage` (the kernel stage,
                  `kernels.cac.cac_stage` over the sp group)
 
+Under autograd the same backend trains: `halo_rows`, `all_sum` and
+`global_max` are differentiable collectives (`parallel.comm`), and the
+kernel stage is `kernels.cac.CacStageFunction` over the sp group, so the
+sharded gradient equals the single-device one (JAX gets this from the
+transpose rules of `ppermute`, `psum` and `all_gather`).
+
 Convs are SAME-padded in every backend of the port, so there is no other
 padding to refuse. Grouped convs (`groups`, the merged-tower forward's)
 exchange halo rows of the whole grouped input.
@@ -24,18 +30,19 @@ import torch
 
 from codon_tpu_torch.core.ops import TorchOps, conv2d_nhwc
 from codon_tpu_torch.kernels import cac as _cac
-from codon_tpu_torch.parallel.comm import all_max, all_sum, halo_rows
+from codon_tpu_torch.parallel.comm import all_sum, global_max, halo_rows
 
 
 class ShardedOps(TorchOps):
     """Ops for one rank's shard of a spatially sharded image.
 
     mesh: this rank's `parallel.mesh.Mesh`; its sp group holds the image's
-    shards, top to bottom in group-rank order.
+    shards, top to bottom in group-rank order. group: that group itself,
+    in place of a mesh (`CacStageFunction`'s backward).
     """
 
-    def __init__(self, mesh):
-        self.group = mesh.sp_group
+    def __init__(self, mesh=None, group=None):
+        self.group = mesh.sp_group if mesh is not None else group
 
     def conv2d(self, x, w, *, mask=None, groups=1, name=None):
         del name
@@ -55,7 +62,9 @@ class ShardedOps(TorchOps):
         return both[..., :-1] / both[..., -1:]
 
     def global_max(self, x, mask=None):
-        return all_max(TorchOps.global_max(x, mask), self.group)
+        if mask is not None:
+            x = x.masked_fill(mask == 0, float("-inf"))
+        return global_max(x, self.group)
 
     def global_sum(self, x, mask=None):
         return all_sum(TorchOps.global_sum(x, mask), self.group)
@@ -64,13 +73,15 @@ class ShardedOps(TorchOps):
                   mask=None, dst=None):
         """The kernel stage with statistics pooled over every shard (the
         sp group); never the whole-image `TorchOps.cac_stage`, whose pools
-        would be this shard's alone (finite, plausible and wrong)."""
+        would be this shard's alone (finite, plausible and wrong). Under
+        autograd, `CacStageFunction` over the sp group (no `dst` there)."""
+        args = (out, out_c, inputs, inputs_c, w1, b1, w2, b2, sp_w)
         if torch.is_grad_enabled():
-            raise NotImplementedError(
-                "training under a mesh (the sharded CacStageFunction) is "
-                "ROADMAP Queue A item A13b")
-        return _cac.cac_stage(out, out_c, inputs, inputs_c, w1, b1, w2, b2,
-                              sp_w, mask, dst, group=self.group)
+            if dst is not None:
+                raise ValueError("the training stage returns fresh towers; "
+                                 "dst is an eval-only form")
+            return _cac.CacStageFunction.apply(*args, mask, self.group)
+        return _cac.cac_stage(*args, mask, dst, group=self.group)
 
 
 def cac_stage_on_shard(mesh, out, out_c, inputs, inputs_c, mask, w1, b1, w2,
@@ -86,3 +97,53 @@ def cac_stage_on_shard(mesh, out, out_c, inputs, inputs_c, mask, w1, b1, w2,
     if impl != "kernel":
         raise ValueError(f"impl must be 'kernel' or 'torch', got {impl!r}")
     return _cac.cac_stage(*args, mask, group=mesh.sp_group)
+
+
+def shard_cotangent(shape, seed, dp_index, sp_index, device="cpu"):
+    """The cotangent `collective_grad_on_shard` gives the output of mesh
+    coordinate (d, s): float32 N(0, 1) from seed + 100 d + s."""
+    g = torch.Generator().manual_seed(seed + 100 * dp_index + sp_index)
+    return torch.randn(tuple(shape), generator=g).to(device)
+
+
+def collective_grad_on_shard(mesh, x, mask, kind, r, seed):
+    """The gradient of one differentiable collective over the sp group on
+    this rank's shard x, as `MeshPool.shard_map` calls it -> x's gradient
+    for the cotangent `shard_cotangent(output shape, seed, d, s)`. kind:
+    "halo_rows" (r rows), "all_sum" or "global_max"
+    (`ShardedOps.global_max` under `mask`). The probe that holds each
+    backward against the unsharded function's."""
+    x = x.detach().requires_grad_(True)
+    with torch.enable_grad():
+        if kind == "halo_rows":
+            y = halo_rows(x, r, mesh.sp_group)
+        elif kind == "all_sum":
+            y = all_sum(x, mesh.sp_group)
+        elif kind == "global_max":
+            y = ShardedOps(mesh).global_max(x, mask)
+        else:
+            raise ValueError(f"kind must be 'halo_rows', 'all_sum' or "
+                             f"'global_max', got {kind!r}")
+        g = shard_cotangent(y.shape, seed, mesh.dp_index, mesh.sp_index,
+                            x.device).to(y.dtype)
+        gx, = torch.autograd.grad(y, x, g)
+    return gx
+
+
+def cac_stage_grads_on_shard(mesh, out, out_c, inputs, inputs_c, mask, g,
+                             g_c, w1, b1, w2, b2, sp_w):
+    """`CacStageFunction` over the sp group on this rank's shard and its
+    gradients for the cotangents (g, g_c), as `MeshPool.shard_map` calls
+    it -> (new_out, new_out_c, the four towers' gradients, and the
+    weights' [w1 | b1 | w2 | b2 | sp_w] gradients summed over the group,
+    flat, repeated at every (image, row) of the shard)."""
+    xs = [t.detach().requires_grad_(True) for t in
+          (out, out_c, inputs, inputs_c, w1, b1, w2, b2, sp_w)]
+    with torch.enable_grad():
+        new = _cac.CacStageFunction.apply(*xs, mask, mesh.sp_group)
+        grads = torch.autograd.grad(new, xs, (g, g_c))
+    wg = all_sum(torch.cat([t.reshape(-1) for t in grads[4:]]),
+                 mesh.sp_group)
+    n, h = out.shape[:2]
+    return (*(t.detach() for t in new), *grads[:4],
+            wg.expand(n, h, -1).contiguous())

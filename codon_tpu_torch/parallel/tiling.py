@@ -35,6 +35,18 @@ def check_variant(variant) -> None:
             f"ROADMAP Queue A item A13c")
 
 
+def check_blocks(mesh, B, H) -> None:
+    """Raise ValueError unless a batch of B images of H rows cuts into the
+    mesh's (dp, sp) blocks, each shard at least MAX_HALO rows."""
+    if B % mesh.dp or H % mesh.sp:
+        raise ValueError(f"batch {B} and height {H} must divide by the "
+                         f"mesh's dp={mesh.dp} and sp={mesh.sp}")
+    if mesh.sp > 1 and H // mesh.sp < MAX_HALO:
+        raise ValueError(
+            f"H={H} over sp={mesh.sp} leaves {H // mesh.sp} row(s) a "
+            f"shard; the 5x5 stencils need at least {MAX_HALO}")
+
+
 def make_sharded_forward(variant, mesh, ops_factory=None, local_ops=None,
                          scales_factory=None, check_nans=False):
     """(params, depth, color, mask) -> out over `mesh` (rank 0's handle,
@@ -57,14 +69,7 @@ def make_sharded_forward(variant, mesh, ops_factory=None, local_ops=None,
     members = {}
 
     def fwd(params, depth, color, mask):
-        B, H = depth.shape[:2]
-        if B % mesh.dp or H % mesh.sp:
-            raise ValueError(f"batch {B} and height {H} must divide by the "
-                             f"mesh's dp={mesh.dp} and sp={mesh.sp}")
-        if mesh.sp > 1 and H // mesh.sp < MAX_HALO:
-            raise ValueError(
-                f"H={H} over sp={mesh.sp} leaves {H // mesh.sp} row(s) a "
-                f"shard; the 5x5 stencils need at least {MAX_HALO}")
+        check_blocks(mesh, *depth.shape[:2])
         if mask is None:
             raise ValueError("the sharded forward takes a mask (pass ones)")
         seen = members.get(id(params))

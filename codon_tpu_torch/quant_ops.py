@@ -2,8 +2,8 @@
 dynamic per-sample activation scales, the calibration backend that records
 the static scales, and the two fake-quant backends that train for them.
 
-The counterpart of `codon_tpu.quant_ops` but its sharded twins (the int8
-ones are `parallel.quant`'s), with the same arithmetic op for op, so that
+The counterpart of `codon_tpu.quant_ops` but its sharded twins (those
+are `parallel.quant`'s), with the same arithmetic op for op, so that
 the same inputs give the same int8 codes and, in float32, the same bits:
 
   Int8Ops         dynamic scales: each conv quantizes its input on a
@@ -343,12 +343,16 @@ class _StaticFakeQuantMixin:
             return x
         return _fq(x, sc)
 
-    def _fq_site(self, x, w, sc, groups=1):
+    def _fq_site(self, x, w, sc, groups=1, x_scale=None):
         """(xq, wq) of one conv site: on the frozen grid sc with clipped
         STE for the activations and the folded grid for the weights, or
-        on the dynamic grids where the site has no scale."""
+        on the dynamic grids where the site has no scale. x_scale replaces
+        the dynamic activation scale there (the sharded twin passes the
+        scale gathered over the sp group, so tiled equals untiled)."""
         if sc is None:
-            return (_fq(x, _x_scale(x).float()),
+            if x_scale is None:
+                x_scale = _x_scale(x).float()
+            return (_fq(x, x_scale),
                     _fq(w, _w_scales(w)[None, None, None, :]))
         sk = _scale_per_kernel_input(sc, groups, w.shape[2], w.shape[3])
         sw = _w_scales(w.float() * sk)

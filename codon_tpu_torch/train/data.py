@@ -76,8 +76,8 @@ class PatchSampler:
         if self.pyramid:
             raise NotImplementedError(
                 "PatchSampler.pyramid (INTER_AREA levels) is not ported "
-                "yet (ROADMAP Queue A item 11); the default () trains "
-                "without it")
+                "yet (ROADMAP Queue A, PatchSampler.pyramid); the default "
+                "() trains without it")
         small = [i for i, l in enumerate(self.labels)
                  if min(l.shape) < self.patch]
         if small:

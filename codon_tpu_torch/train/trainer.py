@@ -1,8 +1,9 @@
 """Training step: the masked loss, its gradient, and optax's optimizer chain.
 
-The counterpart of `codon_tpu.train.trainer` on one device (the sharded
-step waits for the multi-GPU slice). The reference ships no training code;
-this trainer is the path to the repo's weights.
+The counterpart of `codon_tpu.train.trainer`: one device here, and over a
+dp x sp mesh of ranks through `parallel.train` (`make_train_step(...,
+mesh=)`). The reference ships no training code; this trainer is the path
+to the repo's weights.
 
 The optimizer is written out on tensors, as the JAX package's optax chain
 computes it:
@@ -206,30 +207,57 @@ def make_optimizer(cfg: TrainConfig) -> Optimizer:
 # the step
 # ---------------------------------------------------------------------------
 
-def masked_loss(out, batch, cfg: TrainConfig) -> torch.Tensor:
-    """The masked l1 / l2 loss, plus grad_weight x the masked L1 of the
-    forward differences along H and W, float32 (JAX's loss_fn)."""
+def loss_sums(out, batch, cfg: TrainConfig, below=None):
+    """The sums `masked_loss` divides -> (error sum, valid pixels, the
+    forward differences' error sum, valid pairs), float32 0-d tensors; the
+    last two 0 without grad_weight. A pair along H or W counts when both
+    its pixels are valid.
+
+    below: None, or the first row of (out, label, mask) of the part of the
+    image below this one, (N, 1, W, 3): its pairs with this part's last
+    row count here (a spatial shard's; zero rows below the image drop the
+    pairs)."""
     m = batch["mask"]
-    err = (out - batch["label"]) * m
-    denom = torch.sum(m)
+    lbl = batch["label"]
+    err = (out - lbl) * m
     if cfg.loss == "l2":
-        loss = torch.sum(err * err) / denom
+        num = torch.sum(err * err)
     elif cfg.loss == "l1":
-        loss = torch.sum(torch.abs(err)) / denom
+        num = torch.sum(torch.abs(err))
     else:
         raise ValueError(f"TrainConfig.loss must be 'l1' or 'l2', got "
                          f"{cfg.loss!r}")
+    den = torch.sum(m)
+    if not cfg.grad_weight:
+        zero = num.new_zeros(())
+        return num, den, zero, zero
+    oh, lh, mh = out, lbl, m
+    if below is not None:
+        oh = torch.cat([out, below[..., :1]], 1)
+        lh = torch.cat([lbl, below[..., 1:2]], 1)
+        mh = torch.cat([m, below[..., 2:]], 1)
+    my = mh[:, 1:] * mh[:, :-1]
+    mx = m[:, :, 1:] * m[:, :, :-1]
+    ey = ((oh[:, 1:] - oh[:, :-1]) - (lh[:, 1:] - lh[:, :-1])) * my
+    ex = ((out[:, :, 1:] - out[:, :, :-1])
+          - (lbl[:, :, 1:] - lbl[:, :, :-1])) * mx
+    return (num, den, torch.sum(torch.abs(ey)) + torch.sum(torch.abs(ex)),
+            torch.sum(my) + torch.sum(mx))
+
+
+def loss_of_sums(cfg: TrainConfig, num, den, gnum, gden):
+    """The masked loss from `loss_sums`' four sums (JAX's loss_fn):
+    num / den, plus grad_weight x gnum / max(gden, 1)."""
+    loss = num / den
     if cfg.grad_weight:
-        lbl = batch["label"]
-        my = m[:, 1:] * m[:, :-1]
-        mx = m[:, :, 1:] * m[:, :, :-1]
-        ey = ((out[:, 1:] - out[:, :-1]) - (lbl[:, 1:] - lbl[:, :-1])) * my
-        ex = ((out[:, :, 1:] - out[:, :, :-1])
-              - (lbl[:, :, 1:] - lbl[:, :, :-1])) * mx
-        gdenom = torch.clamp_min(torch.sum(my) + torch.sum(mx), 1.0)
-        gloss = (torch.sum(torch.abs(ey)) + torch.sum(torch.abs(ex))) / gdenom
-        loss = loss + cfg.grad_weight * gloss
+        loss = loss + cfg.grad_weight * (gnum / torch.clamp_min(gden, 1.0))
     return loss
+
+
+def masked_loss(out, batch, cfg: TrainConfig) -> torch.Tensor:
+    """The masked l1 / l2 loss, plus grad_weight x the masked L1 of the
+    forward differences along H and W, float32 (JAX's loss_fn)."""
+    return loss_of_sums(cfg, *loss_sums(out, batch, cfg))
 
 
 class TrainStep:
@@ -257,17 +285,24 @@ class TrainStep:
                                          ops=self.ops)
         return masked_loss(out, batch, self.cfg)
 
-    def value_and_grad(self, params, batch):
-        """-> (loss, [grad of each leaf in tree_items order]). A leaf that
-        the forward should reach but got no gradient raises: a cut graph
-        would otherwise train only what lies behind the cut. The leaves
-        under the variant's `unread` names get zeros, as JAX's gradient
-        gives them."""
+    def _objective(self, params, batch):
+        """-> (what to differentiate, what else the step needs from the
+        forward): the loss and None here; a shard's part of the loss and
+        its partial sums in `parallel.train`."""
+        return self.loss(params, batch), None
+
+    def _leaf_grads(self, params, batch):
+        """-> (objective, aux, [grad of each leaf in tree_items order]). A
+        leaf that the forward should reach but got no gradient raises: a
+        cut graph would otherwise train only what lies behind the cut. The
+        leaves under the variant's `unread` names get zeros, as JAX's
+        gradient gives them."""
         items = tree_items(params)
         leaves = [t.detach().requires_grad_(True) for _, t in items]
         with torch.enable_grad(), full_fp32():
-            loss = self.loss(tree_rebuild(params, leaves), batch)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            objective, aux = self._objective(tree_rebuild(params, leaves),
+                                             batch)
+            grads = torch.autograd.grad(objective, leaves, allow_unused=True)
         out = []
         for (path, t), g in zip(items, grads):
             if g is None:
@@ -277,7 +312,13 @@ class TrainStep:
                         f"training forward's graph is cut")
                 g = torch.zeros_like(t)
             out.append(g)
-        return loss.detach(), out
+        return objective.detach(), aux, out
+
+    def value_and_grad(self, params, batch):
+        """-> (loss, [grad of each leaf in tree_items order]); see
+        `_leaf_grads`."""
+        loss, _, grads = self._leaf_grads(params, batch)
+        return loss, grads
 
     def _check(self, params, loss, grads):
         if not bool(torch.isfinite(loss)):
@@ -300,12 +341,19 @@ def make_train_step(variant, cfg: TrainConfig = TrainConfig(), ops=None,
                     check_finite: bool = False, mesh=None):
     """-> (step, opt): `TrainStep` and its `Optimizer` (opt.init(params)
     makes the state), as `codon_tpu`'s make_train_step returns (step, tx).
-    A `mesh` (sharded training) is not ported yet and raises.
+
+    mesh: rank 0's handle of a dp x sp mesh (`parallel.MeshPool.mesh`):
+    the step then runs over its ranks (`parallel.train.MeshTrainStep`, the
+    same signature), the batch cut over dp and H over sp, the gradients
+    summed over the mesh. `ops` there is None or a fake-quant backend,
+    which maps to its sharded twin; any other backend raises
+    NotImplementedError, as in JAX.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "sharded training (a mesh) is not ported yet: ROADMAP Queue A "
-            "item 7, multi-GPU (A13)")
+        from codon_tpu_torch.parallel.train import MeshTrainStep
+        step = MeshTrainStep(variant, cfg, mesh, ops=ops,
+                             check_finite=check_finite)
+        return step, step.opt
     step = TrainStep(variant, cfg, ops=ops, check_finite=check_finite)
     return step, step.opt
 

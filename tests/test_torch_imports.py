@@ -62,7 +62,8 @@ def test_card_files_exist():
                  "codon_tpu_torch/parallel/launch.py",
                  "codon_tpu_torch/parallel/tiling.py",
                  "codon_tpu_torch/parallel/stitch.py",
-                 "codon_tpu_torch/parallel/dryrun.py"):
+                 "codon_tpu_torch/parallel/dryrun.py",
+                 "codon_tpu_torch/parallel/train.py"):
         assert need in names
     assert all(os.path.exists(p) for p in _card_files())
 

@@ -1158,3 +1158,86 @@ def test_cuda_sharded_stage_one_rank_matches_cac_stage(dtype):
                                    "cac_apply": 1}
     for g_, w_ in zip(got, want):
         assert torch.equal(g_, w_)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@needs_cuda
+def test_cuda_sharded_stage_function_one_rank_matches_plain(dtype):
+    """`CacStageFunction` over a one-rank sp group on the card against its
+    plain sharded recompute (`cac_stage_torch` under `ShardedOps` over the
+    same group): the outputs within the kernels' tolerance, the gradients
+    bitwise (the backward is autograd of that recompute); one launch of
+    each kernel, all in the forward."""
+    from codon_tpu_torch.parallel import MeshPool, ShardedOps
+    towers, mask, _, _, _ = _cuda_inputs(dtype, 23)
+    ws = [to_torch(a, "cuda") for a in cac_weights(24)]
+    gen = torch.Generator().manual_seed(25)
+    cot = [torch.randn(towers[0].shape, generator=gen).to("cuda", dtype)
+           for _ in range(2)]
+    atol, rtol = CUDA_TOLS[dtype]
+    with MeshPool(1, device="cuda", backend="gloo", timeout_s=60) as pool:
+        group = pool.mesh(1, 1).sp_group
+        xs = [t.clone().requires_grad_(True) for t in towers + ws]
+        tcac.reset_launches()
+        got = tcac.CacStageFunction.apply(*xs, mask, group)
+        torch.cuda.synchronize()
+        fwd = tcac.launches()
+        grads = torch.autograd.grad(got, xs, cot)
+        torch.cuda.synchronize()
+        assert fwd == tcac.launches() == {"cac_stats": 1,
+                                          "spatial_logits": 1,
+                                          "cac_apply": 1}
+        ys = [t.clone().requires_grad_(True) for t in towers + ws]
+        want = tnet.cac_stage_torch(*ys, mask=mask,
+                                    ops=ShardedOps(group=group))
+        want_grads = torch.autograd.grad(want, ys, cot)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, atol, rtol)
+    for g_, w_ in zip(grads, want_grads):
+        assert torch.equal(g_, w_)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@needs_cuda
+def test_cuda_sharded_step_one_rank_launches_in_the_forward(dtype):
+    """A sharded training step's gradient on a one-rank mesh with the
+    spatially sharded backend (`ShardedOps`, its kernel stage
+    `CacStageFunction` over the sp group): 5 launches of each CAC kernel,
+    all in the forward, none of the whole-image stage, and the loss and
+    each gradient leaf within (loss rtol, of the leaf's max) of the
+    single-device step: fp32 1e-5 / 1e-5; bf16 1e-2 / 0.25, chip_smoke.py's
+    bf16 TRAIN_TOLS (the sharded recompute pools through float32
+    all-reduces where the whole-image one sums in bf16, a bf16 ulp apart
+    that cascades)."""
+    from codon_tpu_torch.core.params import DTYPE_POLICIES
+    from codon_tpu_torch.models.variants import get_variant
+    from codon_tpu_torch.parallel import MeshPool, ShardedOps
+    from codon_tpu_torch.parallel.train import ShardTrainStep
+    from codon_tpu_torch.train.trainer import TrainConfig, make_train_step
+    v = get_variant("codon", DTYPE_POLICIES[dtype])
+    params = v.init(torch.Generator().manual_seed(3), "cuda")
+    rng = np.random.RandomState(4)
+    batch = {k: to_torch(rng.rand(2, 16, 16, 1).astype(np.float32), "cuda")
+             for k in ("depth", "color", "label")}
+    batch["mask"] = torch.ones(2, 16, 16, 1, device="cuda")
+    cfg = TrainConfig(clip_norm=1.0)
+    want_loss, want = make_train_step(v, cfg)[0].value_and_grad(params,
+                                                                batch)
+    with MeshPool(1, device="cuda", backend="gloo", timeout_s=60) as pool:
+        mesh = pool.mesh(1, 1)
+        step = ShardTrainStep(v, cfg, mesh, ops=ShardedOps(mesh))
+        tcac.reset_launches()
+        tcac.reset_stage_calls()
+        loss, grads = step.value_and_grad(params, batch)
+        torch.cuda.synchronize()
+        assert tcac.launches() == {k: 5 for k in ("cac_stats",
+                                                  "spatial_logits",
+                                                  "cac_apply")}
+        assert tcac.stage_calls() == {"whole": 0, "shard": 5}
+    loss_tol, leaf_tol = (1e-5, 1e-5) if dtype == "fp32" else (1e-2, 0.25)
+    assert abs(float(loss) - float(want_loss)) <= loss_tol * abs(
+        float(want_loss))
+    for g_, w_ in zip(grads, want):
+        assert float((g_ - w_).abs().max()) <= leaf_tol * max(
+            float(w_.abs().max()), 1e-30)

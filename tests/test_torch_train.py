@@ -485,8 +485,16 @@ def test_widen_stem_params_preserves_the_function():
 def test_fused_and_mesh_training_refused():
     with pytest.raises(NotImplementedError, match="codon_fused"):
         get_variant("codon_fused").check_trainable()
-    with pytest.raises(NotImplementedError, match="A13"):
-        make_train_step(get_variant("codon"), mesh=object())
+    # a mesh trains `codon` (tests/test_torch_parallel_train.py); what it
+    # cannot train raises before any rank is asked: codon_fused, the zoo
+    # (A13c) and a backend without a sharded twin, as in JAX
+    with pytest.raises(NotImplementedError, match="codon_fused"):
+        make_train_step(get_variant("codon_fused"), mesh=object())
+    with pytest.raises(NotImplementedError, match="A13c"):
+        make_train_step(get_variant("zoo:basenet"), mesh=object())
+    with pytest.raises(NotImplementedError, match="no sharded twin"):
+        make_train_step(get_variant("codon"), ops=tq.Int8Ops(),
+                        mesh=object())
 
 
 def test_jax_loss_is_the_trainers(jax_grads):
