@@ -183,7 +183,34 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
      on every rank after MESH_TRAIN_STEPS steps, and the wall ms a step
      beside the single-device step's (ranks sharing one H100 over gloo);
      then a one-rank NCCL group's step against the single-device one;
- 35. prints the card's line again, the kernels' JSON line (eight kernels;
+ 35. the ablation zoo over 4 gloo ranks sharing the card: every one of
+     the 27 nets (its own init) in fp32 at b2 (463 x 370 and 450 x 375
+     padded to 480 x 384, masked) at 1x4 against its single-device forward
+     (MESH_FP32_TOL); basenet_nlar, rmcr_fuse_rmcr_rcan and
+     rmcr_fuse_rmcr_eccv at b4 in bf16 at 2x2 and 1x4 (against the fp32
+     forward, `mesh_bf16_class(vs_fp32=True)`) and in dynamic int8 at 2x2,
+     bf16 and fp32 (bitwise the same forward through the plain quant
+     versions; fp32 against the unsharded int8 forward in the flip class
+     or within the move of its own input's 1e-6 change, and on a b4 32x24
+     frame in the flip class; every rank's quant launches those of its
+     shard), and their
+     sharded training step at 2x2 (b16 p64, bf16 and fp32: TRAIN_TOLS,
+     params within 2 lr, replicas bitwise after 2 steps); `cli eval
+     --variant zoo:rmcr_fuse_rmcr_rcan --tile-devices 2 --dp-devices 2
+     --tta8 --device-metrics` against phase 29's eval (MESH_CLI_PNG);
+     no rank launches a CAC kernel or calls the CAC stage; each form's
+     wall a forward or a step beside single-device;
+ 36. codon_fused training: its kernel step against its plain-stage step
+     (TRAIN_TOLS, fp32 and bf16) and, fp32, against codon's step on
+     x4_ship4 (5 launches of each CAC kernel a step, none in the
+     backward), both steps timed over TIME_ITERS steps; `cli train
+     --variant codon_fused` from x4_ship4 (bf16 and fp32) with the
+     counts; one sharded bf16 step at 2x2 against its single step;
+ 37. the tools: `codon_tpu_torch.soup` of x4_ship4 and x4_holdout2 and a
+     bf16 `cli eval` of the soup; `codon_tpu_torch.sc_cond_probe` on three
+     scenes with x4_holdout_sc; a PatchSampler with pyramid=PYRAMID (its
+     levels' build ms on the host) and one bf16 step on a batch it draws;
+ 38. prints the card's line again, the kernels' JSON line (eight kernels;
      each CAC and quant kernel's launches_by_path with the mesh paths, by
      rank), then the contract line {"ok": true, "device": {...}} as the
      last line of its output.
@@ -2036,12 +2063,13 @@ def train_batch(data: str, step: int = 0, patch: int = TRAIN_PATCH,
                      for k, v in sampler.sample_at(step).items()}
 
 
-def train_step_for(dtype: str, cac_impl=None, ops=None, mesh=None):
+def train_step_for(dtype: str, cac_impl=None, ops=None, mesh=None,
+                   variant: str = "codon"):
     import dataclasses
     from codon_tpu_torch.core.params import DTYPE_POLICIES
     from codon_tpu_torch.models.variants import get_variant
     from codon_tpu_torch.train.trainer import TrainConfig, make_train_step
-    v = get_variant("codon", DTYPE_POLICIES[dtype])
+    v = get_variant(variant, DTYPE_POLICIES[dtype])
     if cac_impl is not None:
         v = dataclasses.replace(v, cfg=dataclasses.replace(
             v.cfg, cac_impl=cac_impl))
@@ -2054,13 +2082,13 @@ def ship4_params():
     return params_from_numpy(load_npz(CKPT), DEVICE)
 
 
-def grad_distance(a, b, paths):
+def grad_distance(a, b, paths, variant: str = "codon"):
     """-> (the gradient tree's relative L2 distance |a - b| / |b|, the
     worst leaf's max |a - b| over its max |b|, that leaf), over the leaves
-    the forward reads."""
+    the variant's forward reads."""
     from codon_tpu_torch.models.variants import get_variant
     from codon_tpu_torch.train.trainer import top_name
-    unread = get_variant("codon").unread
+    unread = get_variant(variant).unread
     num = den = worst = 0.0
     worst_path = None
     for path, x, y in zip(paths, a, b):
@@ -2957,17 +2985,26 @@ HALO_ROUTE_SITES = ((5, 128), (5, 64), (3, 128))
 MESH_CLI_PNG = {"bf16": (0.05, 3.0), "int8": (255 * 0.01 + 1, 255 * 0.1 + 1)}
 
 
-def mesh_bf16_class(got, single, fp32):
-    """(mean, max |sharded - single|, mean, max |single - fp32|) of a bf16
-    forward. The class: the sharded bf16 forward no farther from the
-    single-device bf16 forward, in mean, than that one is from float32,
-    and in max within twice its max (sharding moves sums by an ulp as bf16
-    rounding does, and adds no error class of its own)."""
-    d, e = (got - single).abs(), (single - fp32).abs()
+def mesh_bf16_class(got, single, fp32, what="bf16 sharded", vs_fp32=False):
+    """(mean, max |sharded - ref|, mean, max |single - fp32|) of a bf16
+    forward, ref the single-device bf16 forward. The class: the sharded
+    bf16 forward no farther from it, in mean, than that one is from
+    float32, and in max within twice its max (sharding moves sums by an
+    ulp as bf16 rounding does, and adds no error class of its own).
+    vs_fp32 (the random-init zoo, whose outputs are small differences of
+    large activations: a shard's bf16 partial pools, which round otherwise
+    than the whole image's, make the sharded forward a bf16 forward of its
+    own, as far from the single one as two bf16 forwards are): ref the
+    float32 forward of the same backend, the sharded forward no farther
+    from it than BF16_CLASS times the single one is, in mean, and twice
+    in max."""
+    d, e = (got - (fp32 if vs_fp32 else single)).abs(), (single - fp32).abs()
     r = (float(d.mean()), float(d.max()), float(e.mean()), float(e.max()))
-    need(r[0] <= r[2] and r[1] <= 2 * r[3],
-         f"bf16 sharded vs single mean {r[0]:.3e} max {r[1]:.3e}: beyond "
-         f"the bf16-vs-fp32 class, mean {r[2]:.3e} max 2 x {r[3]:.3e}")
+    k = BF16_CLASS if vs_fp32 else 1.0
+    need(r[0] <= k * r[2] and r[1] <= 2 * r[3],
+         f"{what} vs {'fp32' if vs_fp32 else 'single'} mean {r[0]:.3e} max "
+         f"{r[1]:.3e}: beyond the bf16-vs-fp32 class, mean {k} x {r[2]:.3e} "
+         f"max 2 x {r[3]:.3e}")
     return r
 
 
@@ -3101,7 +3138,8 @@ def time_halo_routes(kq):
     return rows
 
 
-def run_mesh_cli(kc, data: str, tmp: str, ref_out: str, ref, dtype, ckpt):
+def run_mesh_cli(kc, data: str, tmp: str, ref_out: str, ref, dtype, ckpt,
+                 variant="codon", cac_per_forward=5):
     """`cli eval --tile-devices 2 --dp-devices 2 --dist-backend gloo
     --tta8 --device-metrics` (b4) against the single-device eval of the
     same flags (phase 9 or 14): each image's PNG within MESH_CLI_PNG of
@@ -3110,13 +3148,15 @@ def run_mesh_cli(kc, data: str, tmp: str, ref_out: str, ref, dtype, ckpt):
     --json summary every rank of the 2 x 2 mesh launched each CAC kernel
     5 times a forward (the quant kernels too in int8), took its blocks,
     exchanged halo rows, all-reduced its statistics and gave its outputs
-    back. Rank 0's CAC counts set to 0 just before and read just after."""
+    back. Rank 0's CAC counts set to 0 just before and read just after.
+    variant and its CAC launches a forward (0 for the zoo) as the
+    single-device eval's."""
     import contextlib
     import io
 
     import numpy as np
     from codon_tpu_torch.data.io import imread_gray
-    out = os.path.join(tmp, f"mesh_cli_{dtype}")
+    out = os.path.join(tmp, f"mesh_cli_{variant.replace(':', '_')}_{dtype}")
     kc.reset_launches()
     said = io.StringIO()
     with contextlib.redirect_stdout(said):
@@ -3124,13 +3164,13 @@ def run_mesh_cli(kc, data: str, tmp: str, ref_out: str, ref, dtype, ckpt):
             data, out, out + ".json", 4,
             ["--tta8", "--device-metrics", "--tile-devices", "2",
              "--dp-devices", "2", "--dist-backend", "gloo"], ckpt=ckpt,
-            dtype=dtype)
+            dtype=dtype, variant=variant)
     sys.stdout.write(said.getvalue())
     need("mesh eval: dp=2 x sp=2 over 4 devices; backend gloo (4 ranks on "
          "1 cuda device(s))" in said.getvalue(),
          f"mesh cli eval {dtype}: no mesh banner")
     counts = kc.launches()
-    want = 2 * 5 * -(-len(SCENES) // 4)
+    want = 2 * cac_per_forward * -(-len(SCENES) // 4)
     need_cli_counts(counts, want)
     report = summary["mesh"]
     need((report["dp"], report["sp"], report["backend"],
@@ -3140,7 +3180,8 @@ def run_mesh_cli(kc, data: str, tmp: str, ref_out: str, ref, dtype, ckpt):
                      f"mesh cli eval {dtype}")
     for rank, c in enumerate(report["ranks"]):
         moved = {p: c["comm"][p]["calls"] for p in
-                 ("scatter", "halo_rows", "all_sum", "all_max", "gather")}
+                 ("scatter", "halo_rows", "all_sum", "all_max", "gather")
+                 if cac_per_forward or p != "all_max"}
         need(all(moved.values()), f"mesh cli eval {dtype}: rank {rank}'s "
              f"collectives {moved}")
         if dtype == "int8":
@@ -3399,14 +3440,14 @@ def max_tree_diff(a, b) -> float:
                for (_, x), (_, y) in zip(tree_items(a), tree_items(b)))
 
 
-def need_mesh_train_counts(counts, dp, sp, steps, what):
-    """Every rank of the mesh launched each CAC kernel 5 times a step (all
-    in the forward: the backward recomputes the plain stage) and called
-    the stage on shards only when sp > 1 (whole images when sp = 1);
-    ranks outside the mesh did nothing."""
+def need_mesh_train_counts(counts, dp, sp, steps, what, per_step=5):
+    """Every rank of the mesh launched each CAC kernel per_step times a
+    step (5, all in the forward: the backward recomputes the plain stage;
+    0 for the zoo) and called the stage on shards only when sp > 1 (whole
+    images when sp = 1); ranks outside the mesh did nothing."""
     for rank, c in enumerate(counts):
         inside = rank < dp * sp
-        want = 5 * steps if inside else 0
+        want = per_step * steps if inside else 0
         for name in ("cac_stats", "spatial_logits", "cac_apply"):
             need(c["cac"][name] == want, f"{what}: rank {rank} launched "
                  f"{name} {c['cac'][name]} times; expected {want}")
@@ -3417,27 +3458,31 @@ def need_mesh_train_counts(counts, dp, sp, steps, what):
 
 
 def mesh_train_form(pool, dtype, dp, sp, params, batch, single, fp32_grads,
-                    paths, ops=None, label=None):
+                    paths, ops=None, label=None, variant="codon",
+                    steps=MESH_TRAIN_STEPS):
     """One form of the sharded step against the single-device one (single:
     (loss, grads, params after one step, ms a step)) -> its row. The
     gradient and the counts come from the mesh's value_and_grad (rank 0's
     summed gradient; every rank's tallies set to 0 just before, read just
     after); then MESH_TRAIN_STEPS steps from a copy of params: the first
     against the single step's parameters, the rest timed, their launches
-    counted, the replicas compared."""
+    counted, the replicas compared. variant: a variant name (the zoo's
+    launch no CAC kernel); steps: the steps before the replicas are
+    compared."""
     import torch
     from codon_tpu_torch.parallel.launch import rank_counts, reset_rank_counts
     from codon_tpu_torch.parallel.train import replica_digest
     what = label or f"mesh train {dtype} {dp}x{sp}"
+    per_step = 0 if variant.startswith("zoo:") else 5
     mesh = pool.mesh(dp, sp)
-    step, opt = train_step_for(dtype, ops=ops, mesh=mesh)
+    step, opt = train_step_for(dtype, ops=ops, mesh=mesh, variant=variant)
     pool.call(reset_rank_counts)
     loss, grads = step.value_and_grad(params, batch)
     torch.cuda.synchronize()
     counts = pool.call(rank_counts)
-    need_mesh_train_counts(counts, dp, sp, 1, what)
+    need_mesh_train_counts(counts, dp, sp, 1, what, per_step)
     l1, g1, p1, single_ms = single
-    tree, worst, worst_path = grad_distance(grads, g1, paths)
+    tree, worst, worst_path = grad_distance(grads, g1, paths, variant)
     row = {"form": f"{dp}x{sp}", "dtype": dtype, "loss": float(loss),
            "loss_single": float(l1),
            "loss_rel": abs(float(loss) - float(l1)) / abs(float(l1)),
@@ -3454,8 +3499,9 @@ def mesh_train_form(pool, dtype, dp, sp, params, batch, single, fp32_grads,
              f"{worst_path} {worst:.3e} of its max |g| (> {leaf_tol}?)")
         if dtype == "bf16" and fp32_grads is not None:
             row["sharded_vs_fp32"] = grad_distance(grads, fp32_grads,
-                                                   paths)[0]
-            row["single_vs_fp32"] = grad_distance(g1, fp32_grads, paths)[0]
+                                                   paths, variant)[0]
+            row["single_vs_fp32"] = grad_distance(g1, fp32_grads, paths,
+                                                  variant)[0]
             need(row["sharded_vs_fp32"]
                  <= BF16_CLASS * row["single_vs_fp32"],
                  f"{what}: {row['sharded_vs_fp32']:.3e} from the fp32 "
@@ -3475,25 +3521,24 @@ def mesh_train_form(pool, dtype, dp, sp, params, batch, single, fp32_grads,
     pool.call(reset_rank_counts)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(MESH_TRAIN_STEPS - 1):
+    for _ in range(steps - 1):
         p, state, m = step(p, state, batch)
     float(m["loss"])
-    row["ms"] = (time.perf_counter() - t0) * 1e3 / (MESH_TRAIN_STEPS - 1)
-    need_mesh_train_counts(pool.call(rank_counts), dp, sp,
-                           MESH_TRAIN_STEPS - 1, what + " steps")
+    row["ms"] = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+    need_mesh_train_counts(pool.call(rank_counts), dp, sp, steps - 1,
+                           what + " steps", per_step)
     digests = pool.call(replica_digest, step.slot)[:mesh.size]
-    need(len(set(digests)) == 1 and state["count"] == MESH_TRAIN_STEPS,
-         f"{what}: the {mesh.size} replicas differ after "
-         f"{MESH_TRAIN_STEPS} steps")
-    row["replicas"] = f"{mesh.size} bitwise equal after {MESH_TRAIN_STEPS}"
+    need(len(set(digests)) == 1 and state["count"] == steps,
+         f"{what}: the {mesh.size} replicas differ after {steps} steps")
+    row["replicas"] = f"{mesh.size} bitwise equal after {steps}"
     return row
 
 
-def single_train(dtype, params, batch, ops=None):
+def single_train(dtype, params, batch, ops=None, variant="codon"):
     """The single-device step: (loss, grads, params after one step from a
     copy, ms a step back to back)."""
     import torch
-    step, opt = train_step_for(dtype, ops=ops)
+    step, opt = train_step_for(dtype, ops=ops, variant=variant)
     loss, grads = step.value_and_grad(params, batch)
     p = copy_tree(params)
     state = opt.init(p)
@@ -3573,6 +3618,402 @@ def run_mesh_train_phase(kc, data: str):
         need(res["nccl"]["loss_rel"] <= loss_tol and worst <= leaf_tol
              and tree_rel <= tree_tol,
              f"the one-rank NCCL step vs single: {res['nccl']}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 35: the ablation zoo over the mesh
+# ---------------------------------------------------------------------------
+
+# the zoo's sweep over the 4 gloo ranks: every net, fp32, the first two
+# images of the zoo batch (463 x 370 and 450 x 375 padded to 480 x 384,
+# masked) at 1 x 4, held elementwise within MESH_FP32_TOL of its
+# single-device forward
+ZOO_MESH_SWEEP = (2, (1, 4))
+# the three nets of the bf16, int8 and training forms: CGNL's global sums,
+# RCAN's pooled gate (its narrow int8 sites padded) and the CBAM towers
+ZOO_MESH_NETS = ("basenet_nlar", "rmcr_fuse_rmcr_rcan", "rmcr_fuse_rmcr_eccv")
+ZOO_MESH_FORMS = ((2, 2), (1, 4))
+# the dynamic int8 zoo forward over the mesh, at 2 x 2, bf16 and fp32
+# float parts: each held bitwise against the same sharded forward through
+# the plain versions of the quant kernels (the kernels at every seam and
+# padded narrow site); fp32 against the unsharded fp32 int8 forward in
+# the flip class INT8_CPU_BOUNDS or, where the net's own int8 forward
+# moves farther when its input moves by ZOO_INT8_PERTURB (relative), in
+# that distance. INT8_CPU_BOUNDS is ~3x what trained CODONNet's int8
+# forward moves under such a change; a random-init zoo net can move as
+# far as its int8 forward sits from its float one (one flipped code
+# cascades through the pooled gates), and a shard's pools sum in another
+# order than the whole image's, an ulp apart. On a frame this small
+# (ZOO_INT8_SMALL: b4, image 1 masked in its last 5 rows and 3 columns)
+# sharded and unsharded held in the flip class alone. bf16: also against
+# the fp32 int8 forward in `mesh_bf16_class(vs_fp32=True)`'s class.
+ZOO_INT8_PERTURB = 1e-6
+ZOO_INT8_SMALL = (4, 32, 24)
+# the zoo's sharded steps take this many steps before the replicas are
+# compared
+ZOO_MESH_TRAIN_STEPS = 2
+# `cli eval --variant zoo:<this> --tile-devices 2 --dp-devices 2 --tta8
+# --device-metrics`, held against phase 29's single-device eval in
+# MESH_CLI_PNG's bf16 class
+ZOO_MESH_CLI = "rmcr_fuse_rmcr_rcan"
+
+
+def zoo_small_frame():
+    """ZOO_INT8_SMALL's frame on the card: depth, color, mask (N, H, W, 1)
+    float32 from ZOO_SEED, image 1 valid on its top-left (H - 5) x
+    (W - 3), zero on the padding."""
+    import numpy as np
+    import torch
+    n, h, w = ZOO_INT8_SMALL
+    rng = np.random.RandomState(ZOO_SEED)
+    mask = np.ones((n, h, w, 1), np.float32)
+    mask[1, h - 5:] = 0.0
+    mask[1, :, w - 3:] = 0.0
+    return [torch.from_numpy(a).to(DEVICE) for a in (
+        rng.rand(n, h, w, 1).astype(np.float32) * mask,
+        rng.rand(n, h, w, 1).astype(np.float32) * mask, mask)]
+
+
+def mean_max(a, b):
+    e = (a.float() - b.float()).abs()
+    return (float(e.mean()), float(e.max()))
+
+
+def run_zoo_mesh_phase(kc, kq, data: str, pool):
+    """Phase 35: the ablation zoo over 4 gloo ranks sharing the card (this
+    process rank 0), each form against its single-device forward or step:
+    every net in fp32 at 1 x 4 (ZOO_MESH_SWEEP), ZOO_MESH_NETS in bf16 at
+    2 x 2 and 1 x 4 (`mesh_bf16_class(vs_fp32=True)`), in dynamic int8 at
+    2 x 2, bf16 and fp32 (each bitwise its plain-quant twin, every rank's
+    quant launches those of its shard; fp32 against the unsharded int8
+    forward, on the zoo batch and on ZOO_INT8_SMALL's frame, as
+    ZOO_INT8_PERTURB's note says), and in sharded training at 2 x 2 (b16
+    p64, bf16 and fp32, TRAIN_TOLS, params within 2 lr, replicas bitwise
+    after ZOO_MESH_TRAIN_STEPS steps). No rank launches a CAC kernel or
+    calls the CAC stage."""
+    import functools
+
+    import torch
+    from codon_tpu_torch import quant_ops as tq
+    from codon_tpu_torch.core.params import BF16
+    from codon_tpu_torch.models.variants import get_variant
+    from codon_tpu_torch.models.zoo import list_zoo
+    from codon_tpu_torch.parallel import make_tiled_forward
+    from codon_tpu_torch.parallel import quant as pq
+    from codon_tpu_torch.parallel.launch import rank_counts, reset_rank_counts
+    from codon_tpu_torch.train.trainer import tree_items
+    res = {"sweep": [], "forms": [], "train": []}
+    b = zoo_batch(data)
+    d, c, m = b.depth, b.color, b.mask
+    small = zoo_small_frame()
+
+    def run(label, dp, sp, fwd, params, dd, cc, mm, quant_want=None,
+            timed=True):
+        pool.call(reset_rank_counts)
+        out = fwd(params, dd, cc, mm)
+        torch.cuda.synchronize()
+        counts = pool.call(rank_counts)
+        need_mesh_counts(counts, dp, sp, 0, quant_want, label)
+        for rank, cnt in enumerate(counts):
+            need(cnt["stages"] == {"whole": 0, "shard": 0},
+                 f"{label}: rank {rank} called the CAC stage "
+                 f"{cnt['stages']}")
+        ms = (time_ms(lambda: fwd(params, dd, cc, mm), 1, MESH_TIME_ITERS)
+              if timed else None)
+        return out, counts, ms
+
+    n2, (dp, sp) = ZOO_MESH_SWEEP
+    d2, c2, m2 = d[:n2], c[:n2], m[:n2]
+    for name in list_zoo():
+        v = get_variant("zoo:" + name)
+        p = zoo_params(name)
+        single = v.forward(p, d2, c2, mask=m2)
+        fwd = make_tiled_forward(v, sp, dp, pool=pool)
+        out, counts, ms = run(f"zoo {name} fp32 {dp}x{sp}", dp, sp, fwd, p,
+                              d2, c2, m2)
+        res["sweep"].append({
+            "name": name, "ms": ms, "counts": counts,
+            "max_abs_diff": mesh_fp32_close(
+                out, single, f"zoo {name} fp32 {dp}x{sp}"),
+            "max_abs_y": float(single.abs().max())})
+        del p
+    for name in ZOO_MESH_NETS:
+        vb, vf = get_variant("zoo:" + name, BF16), get_variant("zoo:" + name)
+        p = zoo_params(name)
+        single = {"bf16": vb.forward(p, d, c, mask=m),
+                  "fp32": vf.forward(p, d, c, mask=m),
+                  "int8": vb.forward(p, d, c, mask=m, ops=tq.Int8Ops()),
+                  "int8_fp32": vf.forward(p, d, c, mask=m,
+                                          ops=tq.Int8Ops())}
+        single_ms = time_ms(lambda: vb.forward(p, d, c, mask=m), 1,
+                            MESH_TIME_ITERS)
+        for fdp, fsp in ZOO_MESH_FORMS:
+            fwd = make_tiled_forward(vb, fsp, fdp, pool=pool)
+            out, counts, ms = run(f"zoo {name} bf16 {fdp}x{fsp}", fdp, fsp,
+                                  fwd, p, d, c, m)
+            res["forms"].append({
+                "name": name, "dtype": "bf16", "form": f"{fdp}x{fsp}",
+                "ms": ms, "single_ms": single_ms, "counts": counts,
+                "fp32_class": mesh_bf16_class(
+                    out, single["bf16"], single["fp32"],
+                    f"zoo {name} bf16 {fdp}x{fsp}", vs_fp32=True)})
+        calls = zoo_int8_calls(name)
+        local = (MAIN_SHAPE[0] // 2, MAIN_SHAPE[1] // 2, MAIN_SHAPE[2])
+        want = zoo_int8_launches(kq, calls, *local)
+        eps = 1 + ZOO_INT8_PERTURB
+        perturbed = mean_max(vf.forward(p, d * eps, c * eps, mask=m,
+                                        ops=tq.Int8Ops()),
+                             single["int8_fp32"])
+        plain = functools.partial(pq.Int8ShardedOps, quant_impl="plain")
+        for dtype, v in (("bf16", vb), ("fp32", vf)):
+            label = f"zoo {name} int8 {dtype} 2x2"
+            out, counts, ms = run(
+                label, 2, 2, make_tiled_forward(
+                    v, 2, 2, pool=pool, ops_factory=pq.Int8ShardedOps),
+                p, d, c, m, quant_want=(want["quant_im2col"],
+                                        want["dequant_epilogue"]))
+            twin, _, _ = run(f"{label}, plain quant", 2, 2,
+                             make_tiled_forward(v, 2, 2, pool=pool,
+                                                ops_factory=plain),
+                             p, d, c, m, quant_want=(0, 0), timed=False)
+            need(torch.equal(out, twin), f"{label}: through the quant "
+                 f"kernels, {mean_max(out, twin)} from the plain versions")
+            row = {"name": name, "dtype": f"int8 dynamic {dtype}",
+                   "form": "2x2", "ms": ms, "counts": counts}
+            if dtype == "bf16":
+                row["vs_single"] = mean_max(out, single["int8"])
+                row["fp32_class"] = mesh_bf16_class(
+                    out, single["int8"], single["int8_fp32"], label,
+                    vs_fp32=True)
+            else:
+                row["vs_single"] = mean_max(out, single["int8_fp32"])
+                row["perturbed"] = perturbed
+                bound = [max(a, b) for a, b in zip(INT8_CPU_BOUNDS,
+                                                    perturbed)]
+                need(all(x <= y for x, y in zip(row["vs_single"], bound)),
+                     f"{label} vs unsharded: {row['vs_single']}, beyond "
+                     f"the flip class {INT8_CPU_BOUNDS} and the unsharded "
+                     f"forward's own move {perturbed} under x {eps}")
+                sd, sc, sm = small
+                row["small"] = mean_max(
+                    make_tiled_forward(vf, 2, 2, pool=pool,
+                                       ops_factory=pq.Int8ShardedOps)(
+                        p, sd, sc, sm),
+                    vf.forward(p, sd, sc, mask=sm, ops=tq.Int8Ops()))
+                need(all(x <= y for x, y in zip(row["small"],
+                                                INT8_CPU_BOUNDS)),
+                     f"{label} on the b{ZOO_INT8_SMALL[0]} "
+                     f"{ZOO_INT8_SMALL[1]}x{ZOO_INT8_SMALL[2]} frame vs "
+                     f"unsharded: {row['small']}, beyond the flip class "
+                     f"{INT8_CPU_BOUNDS}")
+            res["forms"].append(row)
+        del p, single
+    # sharded training at 2 x 2 against the single-device step
+    _, batch = train_batch(data)
+    for name in ZOO_MESH_NETS:
+        variant = "zoo:" + name
+        params = zoo_params(name)
+        paths = [q for q, _ in tree_items(params)]
+        singles = {dt: single_train(dt, params, batch, variant=variant)
+                   for dt in ("fp32", "bf16")}
+        for dtype in ("bf16", "fp32"):
+            row = mesh_train_form(
+                pool, dtype, 2, 2, params, batch, singles[dtype],
+                singles["fp32"][1], paths, variant=variant,
+                label=f"zoo {name} train {dtype} 2x2",
+                steps=ZOO_MESH_TRAIN_STEPS)
+            row["name"] = name
+            res["train"].append(row)
+        del params, singles
+    return res
+
+
+def run_zoo_mesh_cli(kc, data: str, tmp: str, zev):
+    """Phase 35's `cli eval --variant zoo:ZOO_MESH_CLI --tile-devices 2
+    --dp-devices 2 --tta8 --device-metrics` (bf16, its own pool) against
+    phase 29's single-device eval of the same flags (zev)."""
+    ref = zev[ZOO_MESH_CLI][0]
+    ref_out = os.path.join(tmp, f"zoo_{ZOO_MESH_CLI}")
+    return run_mesh_cli(kc, data, tmp, ref_out, ref, "bf16", None,
+                        variant="zoo:" + ZOO_MESH_CLI, cac_per_forward=0)
+
+
+# ---------------------------------------------------------------------------
+# phase 36: codon_fused training (the CAC kernels on the halves of T)
+# ---------------------------------------------------------------------------
+
+FUSED_TRAIN_STEPS = 3
+
+
+def run_fused_train_phase(kc, data: str, tmp: str, pool):
+    """Phase 36: codon_fused's training step against its plain-stage step
+    (TRAIN_TOLS, fp32 and bf16) and, fp32, against codon's step on the
+    same weights (the same net: TRAIN_TOLS' fp32 bounds), with 5 launches
+    of each CAC kernel a step, all in the forward; both steps timed from
+    CUDA events over TIME_ITERS steps; `cli train --variant codon_fused`
+    from x4_ship4 (bf16 and fp32, FUSED_TRAIN_STEPS steps) with the
+    counts; one sharded bf16 step at 2 x 2 against its single step."""
+    import torch
+    from codon_tpu_torch.train.trainer import tree_items
+    params = ship4_params()
+    _, batch = train_batch(data)
+    paths = [p for p, _ in tree_items(params)]
+    res = {"grads": [], "time": {}, "cli": {}}
+    ref = {}
+    for dtype in ("fp32", "bf16"):
+        out = {}
+        for variant, impl in (("codon_fused", None),
+                              ("codon_fused", "torch"), ("codon", None)):
+            step, _ = train_step_for(dtype, cac_impl=impl, variant=variant)
+            kc.reset_launches()
+            out[variant, impl] = step.value_and_grad(params, batch)
+            torch.cuda.synchronize()
+            got = kc.launches()
+            want = 0 if impl == "torch" else 5
+            need(got == {k: want for k in got}, f"{variant} {dtype} "
+                 f"cac_impl={impl} step launched {got}; expected {want} of "
+                 f"each, in the forward")
+        lk, gk = out["codon_fused", None]
+        row = {"dtype": dtype, "loss": float(lk)}
+        loss_tol, leaf_tol, tree_tol = TRAIN_TOLS[dtype]
+        for key, tag in ((("codon_fused", "torch"), "plain"),
+                         (("codon", None), "codon")):
+            if tag == "codon" and dtype != "fp32":
+                continue
+            lt, gt = out[key]
+            tree, worst, leaf = grad_distance(gk, gt, paths)
+            rel = abs(float(lk) - float(lt)) / abs(float(lt))
+            need(math.isfinite(float(lk)) and rel <= loss_tol and
+                 worst <= leaf_tol and tree <= tree_tol,
+                 f"codon_fused {dtype} vs {tag}: loss rel {rel:.2e}, tree "
+                 f"{tree:.3e}, leaf {leaf} {worst:.3e} beyond "
+                 f"{TRAIN_TOLS[dtype]}")
+            row[tag] = {"loss": float(lt), "loss_rel": rel, "grad_tree_rel":
+                        tree, "grad_worst_rel": worst,
+                        "grad_worst_leaf": leaf}
+        if dtype == "fp32":
+            ref = out["codon_fused", "torch"][1]
+        else:
+            row["kernels_vs_fp32"] = grad_distance(gk, ref, paths)[0]
+            row["plain_vs_fp32"] = grad_distance(
+                out["codon_fused", "torch"][1], ref, paths)[0]
+            need(row["kernels_vs_fp32"] <= BF16_CLASS * row["plain_vs_fp32"],
+                 f"codon_fused bf16 kernel step {row['kernels_vs_fp32']:.3e} "
+                 f"from the fp32 gradient, plain {row['plain_vs_fp32']:.3e}")
+        res["grads"].append(row)
+        for variant in ("codon_fused", "codon"):
+            step, opt = train_step_for(dtype, variant=variant)
+            p = copy_tree(params)
+            state = opt.init(p)
+            res["time"][dtype, variant] = time_ms(
+                lambda: step(p, state, batch), 2, TIME_ITERS)
+        del out
+    for dtype in ("bf16", "fp32"):
+        ck = os.path.join(tmp, f"fused_train_{dtype}.npz")
+        said, counts, wall = train_cli(kc, [
+            "--data-dir", data, "--variant", "codon_fused", "--dtype", dtype,
+            "--ckpt-in", CKPT, "--steps", str(FUSED_TRAIN_STEPS),
+            "--batch", str(TRAIN_BATCH), "--patch", str(TRAIN_PATCH),
+            "--log-every", "1", "--ckpt-out", ck])
+        need_train_counts(counts, FUSED_TRAIN_STEPS,
+                          f"cli train --variant codon_fused {dtype}")
+        res["cli"][dtype] = {"losses": train_losses(said), "wall_s": wall,
+                             "counts": counts}
+    single = single_train("bf16", params, batch, variant="codon_fused")
+    row = mesh_train_form(pool, "bf16", 2, 2, params, batch, single, None,
+                          paths, variant="codon_fused",
+                          label="mesh train codon_fused bf16 2x2")
+    row["dtype"] = "bf16 codon_fused"
+    res["mesh"] = row
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 37: the tools (soup, sc_cond_probe) and the pyramid sampler
+# ---------------------------------------------------------------------------
+
+CKPT_SC = os.path.join(REPO, "checkpoints", "x4_holdout_sc.npz")
+PYRAMID = (0.5, 0.75)
+
+
+def run_tools_phase(kc, data: str, tmp: str):
+    """Phase 37: `python -m codon_tpu_torch.soup` of x4_ship4 and
+    x4_holdout2 (in-process) and a bf16 `cli eval` of the soup (finite
+    metrics, 10 CAC launches each); `sc_cond_probe` on three scenes of the
+    scale dir with x4_holdout_sc (3 rows of finite RMSEs and deltas, the
+    --json file holding the printed rows); a PatchSampler with
+    pyramid=PYRAMID over the scale dir's scenes (its levels' build ms)
+    and one bf16 training step on a batch it draws."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from codon_tpu_torch import sc_cond_probe, soup
+    from codon_tpu_torch.data.io import discover_pairs, imread_gray
+    from codon_tpu_torch.data.pipeline import to_device
+    from codon_tpu_torch.train.data import PatchSampler
+    res = {}
+    out = os.path.join(tmp, "soup.npz")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        need(soup.main([out, CKPT, CKPT2]) == 0, "soup failed")
+    res["soup_said"] = buf.getvalue().strip()
+    kc.reset_launches()
+    eout = os.path.join(tmp, "soup_eval")
+    summary, wall = eval_once(data, eout, eout + ".json", 4, ckpt=out)
+    counts = kc.launches()
+    need(all(math.isfinite(summary[k]) for k in ("mean_rmse", "mean_ssim"))
+         and len(summary["per_image"]) == len(SCENES),
+         "the soup's eval did not score every image")
+    want = 5 * -(-len(SCENES) // 4)
+    need(counts == {k: want for k in counts}, f"the soup's eval launched "
+         f"{counts}")
+    res["soup_eval"] = {"mean_rmse": summary["mean_rmse"],
+                        "mean_ssim": summary["mean_ssim"], "wall_s": wall,
+                        "counts": counts}
+    names = discover_pairs(data)[:3]
+    jpath = os.path.join(tmp, "sc_probe.json")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = sc_cond_probe.main(["--data-dir", data, "--ckpt", CKPT_SC,
+                                 "--scenes", ",".join(names), "--json",
+                                 jpath])
+    need(rc == 0, "sc_cond_probe failed")
+    rows = [json.loads(line) for line in buf.getvalue().strip().splitlines()]
+    with open(jpath) as f:
+        written = json.load(f)
+    need(len(rows) == 3 and written["rows"] == rows and all(
+        math.isfinite(x) for r in rows for k in ("rmse_by_cond",
+                                                 "mean_abs_delta")
+        for x in r[k].values()), f"sc_cond_probe rows {rows}")
+    res["sc_rows"] = rows
+    imgs = {sub: [imread_gray(os.path.join(data, sub, n + ".png"))
+                  for n in discover_pairs(data)]
+            for sub in ("input_label", "input_color", "input_depth")}
+    t0 = time.perf_counter()
+    sampler = PatchSampler(imgs["input_label"], imgs["input_color"], scale=4,
+                           patch=TRAIN_PATCH, batch=TRAIN_BATCH,
+                           degraded=imgs["input_depth"], pyramid=PYRAMID)
+    res["pyramid_build_ms"] = (time.perf_counter() - t0) * 1e3
+    need(len(sampler._levels) == 1 + len(PYRAMID),
+         f"the pyramid sampler built {len(sampler._levels)} levels")
+    res["pyramid_sizes"] = [list(lv[0][0].shape) for lv in sampler._levels]
+    t0 = time.perf_counter()
+    host = sampler.sample_at(0)
+    res["pyramid_sample_ms"] = (time.perf_counter() - t0) * 1e3
+    batch = {k: to_device(v, torch.device(DEVICE)) for k, v in host.items()}
+    step, opt = train_step_for("bf16")
+    p = ship4_params()
+    kc.reset_launches()
+    p, _, metrics = step(p, opt.init(p), batch)
+    res["pyramid_step"] = {"loss": float(metrics["loss"]),
+                           "grad_norm": float(metrics["grad_norm"]),
+                           "counts": kc.launches()}
+    need(math.isfinite(res["pyramid_step"]["loss"]) and
+         res["pyramid_step"]["counts"] == {k: 5 for k in counts},
+         f"the pyramid batch's step: {res['pyramid_step']}")
+    need(bool(np.isfinite(host["depth"]).all()), "a non-finite patch")
     return res
 
 
@@ -4172,7 +4613,147 @@ def main() -> int:
             f"; transport {nc['transport']}; {comm_text(nc['comm'])}")
         say(f"mesh train phase: {time.time() - t0:.1f} s")
 
-    # 35. results
+        # 35-36. the zoo over the mesh, and codon_fused training (its
+        # sharded step on the same pool)
+        from codon_tpu_torch.parallel import MeshPool
+        t0 = time.time()
+        with MeshPool(MESH_WORLD, device=DEVICE, backend="gloo",
+                      timeout_s=300) as pool:
+            say(f"zoo mesh pool: {MESH_WORLD} gloo ranks on one card, "
+                f"started in {time.time() - t0:.1f} s")
+            zm = run_zoo_mesh_phase(kc, kq, data, pool)
+            t1 = time.time()
+            ft = run_fused_train_phase(kc, data, tmp, pool)
+            fused_s = time.time() - t1
+        need(not any(proc.is_alive() for proc in pool._procs),
+             "a mesh rank outlived its pool")
+        zm["cli"] = run_zoo_mesh_cli(kc, data, tmp, zev)
+        n2, (sdp, ssp) = ZOO_MESH_SWEEP
+        for r in zm["sweep"]:
+            say(f"zoo mesh {r['name']} fp32 {sdp}x{ssp} b{n2} 384x480 "
+                f"masked, own init: vs single max |d| "
+                f"{r['max_abs_diff']:.3e} (atol/rtol {MESH_FP32_TOL}; max "
+                f"|y| {r['max_abs_y']:.4g}); wall {r['ms']:.2f} ms a "
+                f"forward, ranks sharing one H100 over gloo ({card}); no "
+                f"CAC launch or stage call on any rank")
+        say(f"zoo mesh sweep: {len(zm['sweep'])} nets, worst max |d| "
+            f"{max(r['max_abs_diff'] for r in zm['sweep']):.3e}")
+        for r in zm["forms"]:
+            if "fp32_class" in r:
+                fc = r["fp32_class"]
+                cmp = (f"vs the fp32 {'int8 ' if 'int8' in r['dtype'] else ''}"
+                       f"forward mean {fc[0]:.3e} max {fc[1]:.3e} (single "
+                       f"bf16 mean {fc[2]:.3e} max {fc[3]:.3e}; <= "
+                       f"{BF16_CLASS}x mean, 2x max)")
+            else:
+                cmp = (f"its 1e-6 input change moves the unsharded forward "
+                       f"mean {r['perturbed'][0]:.3e} max "
+                       f"{r['perturbed'][1]:.3e}; b{ZOO_INT8_SMALL[0]} "
+                       f"{ZOO_INT8_SMALL[1]}x{ZOO_INT8_SMALL[2]} frame vs "
+                       f"unsharded mean {r['small'][0]:.3e} max "
+                       f"{r['small'][1]:.3e} (<= {INT8_CPU_BOUNDS})")
+            if "vs_single" in r:
+                cmp = (f"bitwise its plain-quant twin; vs unsharded mean "
+                       f"{r['vs_single'][0]:.3e} max {r['vs_single'][1]:.3e}"
+                       f"; {cmp}")
+            say(f"zoo mesh {r['name']} {r['dtype']} {r['form']} b4 384x480 "
+                f"masked: {cmp}; wall {r['ms']:.2f} ms a forward"
+                + (f" (single {r['single_ms']:.2f})" if "single_ms" in r
+                   else "")
+                + f", ranks sharing one H100 over gloo ({card}); launches by "
+                  f"rank " + str([{"cac": sum(c["cac"].values()),
+                                   **{k: c["quant"][k] for k in
+                                      ("quant_im2col", "dequant_epilogue")}}
+                                  for c in r["counts"]]))
+        for r in zm["train"]:
+            say(f"zoo mesh train {r['name']} {r['dtype']} 2x2 b{TRAIN_BATCH} "
+                f"p{TRAIN_PATCH}: loss sharded {r['loss']:.6f} single "
+                f"{r['loss_single']:.6f} (rel {r['loss_rel']:.2e}); gradient "
+                f"tree rel L2 {r['grad_tree_rel']:.2e}, worst leaf "
+                f"{r['grad_worst_leaf']} {r['grad_worst_rel']:.2e} of its max "
+                f"|g|"
+                + (f"; from the fp32 gradient: sharded "
+                   f"{r['sharded_vs_fp32']:.3e}, single "
+                   f"{r['single_vs_fp32']:.3e}" if "sharded_vs_fp32" in r
+                   else "")
+                + f"; params after a step max |d| "
+                  f"{r['param_max_abs_diff']:.3e} (<= {MESH_TRAIN_PARAM_LRS} "
+                  f"lr); replicas {r['replicas']} steps; wall {r['ms']:.2f} "
+                  f"ms a step, single {r['single_ms']:.2f} ms, ranks sharing "
+                  f"one H100 over gloo ({card}); CAC launches by rank "
+                  f"{[sum(c['cac'].values()) for c in r['counts']]}")
+        r, r_wall, r_counts, gap = zm["cli"]
+        say(f"zoo mesh cli: cli eval --variant zoo:{ZOO_MESH_CLI} "
+            f"--tile-devices 2 --dp-devices 2 --dist-backend gloo --tta8 "
+            f"--device-metrics bf16 b4 (own init), mean RMSE "
+            f"{r['mean_rmse']}, mean SSIM {r['mean_ssim']}, {r_wall:.1f} s "
+            f"wall (pool start included); vs phase 29's single-device eval: "
+            f"PNG mean |d| <= {gap['png_mean']:.4f}, max <= "
+            f"{gap['png_max']:.0f} levels (class {MESH_CLI_PNG['bf16']}), "
+            f"RMSE |d| <= {gap['rmse']:.4f}, SSIM |d| <= {gap['ssim']:.2e}; "
+            f"rank "
+            f"0 launches {r_counts}; by rank quant "
+            f"{[c['quant']['quant_im2col'] for c in r['mesh']['ranks']]}")
+        say(f"zoo mesh phase: {time.time() - t0 - fused_s:.1f} s")
+
+        # 36. codon_fused training
+        for r in ft["grads"]:
+            say(f"fused train grads {r['dtype']} b{TRAIN_BATCH} "
+                f"p{TRAIN_PATCH} x4_ship4: kernel step loss {r['loss']:.6f}"
+                + "".join(
+                    f"; vs {tag} loss rel {r[tag]['loss_rel']:.2e}, tree "
+                    f"{r[tag]['grad_tree_rel']:.2e}, worst leaf "
+                    f"{r[tag]['grad_worst_leaf']} "
+                    f"{r[tag]['grad_worst_rel']:.2e}"
+                    for tag in ("plain", "codon") if tag in r)
+                + (f"; from the fp32 gradient: kernels "
+                   f"{r['kernels_vs_fp32']:.3e}, plain "
+                   f"{r['plain_vs_fp32']:.3e}" if "kernels_vs_fp32" in r
+                   else "")
+                + "; CAC 5 each a step, none in the backward")
+        for dtype in ("bf16", "fp32"):
+            say(f"fused train time {dtype} b{TRAIN_BATCH} p{TRAIN_PATCH}: "
+                f"codon_fused {ft['time'][dtype, 'codon_fused']:.3f} ms a "
+                f"step, codon {ft['time'][dtype, 'codon']:.3f} ms "
+                f"({TIME_ITERS} steps between CUDA events, {card})")
+            c = ft["cli"][dtype]
+            say(f"fused train cli: cli train --variant codon_fused {dtype} "
+                f"from x4_ship4, {FUSED_TRAIN_STEPS} steps: losses "
+                f"{c['losses']}, {c['wall_s']:.1f} s wall; launches "
+                f"{c['counts']}")
+        r = ft["mesh"]
+        say(f"fused train mesh bf16 2x2: loss sharded {r['loss']:.6f} single "
+            f"{r['loss_single']:.6f} (rel {r['loss_rel']:.2e}); gradient "
+            f"tree rel L2 {r['grad_tree_rel']:.2e}, worst leaf "
+            f"{r['grad_worst_leaf']} {r['grad_worst_rel']:.2e}; params after "
+            f"a step max |d| {r['param_max_abs_diff']:.3e}; replicas "
+            f"{r['replicas']} steps; wall {r['ms']:.2f} ms a step, single "
+            f"{r['single_ms']:.2f} ms (ranks sharing one H100 over gloo, "
+            f"{card}); CAC launches a step by rank "
+            f"{[c['cac']['cac_stats'] for c in r['counts']]}, stage calls "
+            f"{[c['stages'] for c in r['counts']]}")
+        say(f"fused train phase: {fused_s:.1f} s")
+
+        # 37. the tools and the pyramid sampler
+        t0 = time.time()
+        tl = run_tools_phase(kc, data, tmp)
+        say(f"tools soup: {tl['soup_said']}; cli eval bf16 b4 of the soup: "
+            f"mean RMSE {tl['soup_eval']['mean_rmse']}, mean SSIM "
+            f"{tl['soup_eval']['mean_ssim']}, {tl['soup_eval']['wall_s']:.1f}"
+            f" s wall; launches {tl['soup_eval']['counts']}")
+        for row in tl["sc_rows"]:
+            say(f"tools sc_cond_probe: {json.dumps(row)}")
+        ps = tl["pyramid_step"]
+        say(f"tools pyramid: PatchSampler(pyramid={PYRAMID}) over "
+            f"{len(SCENES)} scenes, levels {tl['pyramid_sizes']} (first "
+            f"scene) built in {tl['pyramid_build_ms']:.1f} ms (host), a "
+            f"b{TRAIN_BATCH} p{TRAIN_PATCH} batch in "
+            f"{tl['pyramid_sample_ms']:.1f} ms; one bf16 step on the card: "
+            f"loss {ps['loss']:.6f}, grad_norm {ps['grad_norm']:.4f}, "
+            f"launches {ps['counts']}")
+        say(f"tools phase: {time.time() - t0:.1f} s")
+
+    # 38. results
     int8_paths = {"eval_int8": i8_counts,
                   "eval_int8_tta8_device_metrics": i8t_counts,
                   "eval_int8_ensemble2_tta": i8e_counts,
@@ -4188,7 +4769,11 @@ def main() -> int:
                  "zoo_codon_entry": zc_zoo, "codon_beside_zoo": zc_codon,
                  **{f"eval_zoo_{n}_tta8_device_metrics": v[2]
                     for n, v in zev.items()},
-                 **{f"train_zoo_{n}": r["counts"] for n, r in ztr.items()}}
+                 **{f"train_zoo_{n}": r["counts"] for n, r in ztr.items()},
+                 **{f"train_codon_fused_cli_{k}": v["counts"]
+                    for k, v in ft["cli"].items()},
+                 "eval_soup": tl["soup_eval"]["counts"],
+                 "train_pyramid_step": tl["pyramid_step"]["counts"]}
     # the artifacts' launches in the serving process, batches 1 + 2 + 4
     serve_paths = {f"serve_{r['name']}": {k: sum(c[k] for c in
                                                  r["counts"].values())
@@ -4202,6 +4787,16 @@ def main() -> int:
     # the sharded training step's, a step a rank (forward only)
     mesh_paths.update({f"mesh_train_{r['dtype'].replace(' ', '_')}_"
                        f"{r['form']}": r["counts"] for r in mt["forms"]})
+    mesh_paths["mesh_train_bf16_codon_fused_2x2"] = ft["mesh"]["counts"]
+    # the zoo over the mesh: no CAC launch on any rank; the dynamic int8
+    # forms' quant launches by rank
+    mesh_paths.update({f"mesh_zoo_{r['name']}_fp32_{sdp}x{ssp}":
+                       r["counts"] for r in zm["sweep"]})
+    mesh_paths.update({f"mesh_{'int8_' if 'int8' in r['dtype'] else ''}"
+                       f"zoo_{r['name']}_{r['dtype'].replace(' ', '_')}_"
+                       f"{r['form']}": r["counts"] for r in zm["forms"]})
+    mesh_paths.update({f"mesh_train_zoo_{r['name']}_{r['dtype']}_2x2":
+                       r["counts"] for r in zm["train"]})
     kernels = []
     for name in ("cac_stats", "spatial_logits", "cac_apply"):
         t = timings[name]
@@ -4223,7 +4818,9 @@ def main() -> int:
                                  **{p: [r["cac"][name] for r in c]
                                     for p, c in mesh_paths.items()},
                                  **{f"mesh_cli_{k}_rank0": v[2][name]
-                                    for k, v in mesh["cli"].items()}},
+                                    for k, v in mesh["cli"].items()},
+                                 f"mesh_cli_zoo_{ZOO_MESH_CLI}_rank0":
+                                     zm["cli"][2][name]},
             **({"pitched": {"by_shape": ptimes[name],
                             "max_abs_err": max(r["max_abs_err"]
                                                for r in pchecks[name])}}

@@ -368,12 +368,9 @@ def _mesh_forwards(args, members, device):
     from codon_tpu_torch.parallel.launch import reset_rank_counts
     from codon_tpu_torch.parallel.quant import (Int8ShardedOps,
                                                 static_int8_ops)
-    from codon_tpu_torch.parallel.tiling import check_variant
     from codon_tpu_torch.quant_ops import Int8Ops
 
     dp, sp = max(1, args.dp_devices), max(1, args.tile_devices)
-    for _, _, v in members:
-        check_variant(v)
     pool = MeshPool(dp * sp, device=device, backend=args.dist_backend)
     fwds, trees = [], []
     try:

@@ -83,3 +83,89 @@ def resize_cubic(img: np.ndarray, size) -> np.ndarray:
     out = sum(rows[iy[:, k]] * cy[:, k, None] for k in range(4))
     return np.clip((out + (1 << (2 * COEF_BITS - 1))) >> (2 * COEF_BITS),
                    0, 255).astype(np.uint8)
+
+
+def _area_fast(img: np.ndarray, sy: int, sx: int) -> np.ndarray:
+    """OpenCV's integer-factor route (`resizeAreaFast_`): each output pixel
+    the integer sum of its sy x sx block, times the float32 1 / area,
+    rounded half to even; a 2 x 2 block takes its SIMD route instead,
+    (sum + 2) >> 2."""
+    H, W = img.shape
+    blocks = img.astype(np.int64).reshape(H // sy, sy, W // sx, sx)
+    s = blocks.sum(axis=(1, 3))
+    if sy == 2 and sx == 2:
+        return ((s + 2) >> 2).astype(np.uint8)
+    scale = np.float32(1.0) / np.float32(sy * sx)
+    return np.clip(np.rint(s.astype(np.float32) * scale), 0,
+                   255).astype(np.uint8)
+
+
+def _area_tab(src: int, dst: int, scale: float):
+    """OpenCV's `computeResizeAreaTab`: for each output pixel the source
+    pixels its cell covers and their float32 weights, cell fractions over
+    the cell width -> (indices (dst, K), weights (dst, K)), each row in
+    OpenCV's order and padded with zero weights."""
+    rows = []
+    for d in range(dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, src - f1)
+        s2 = min(int(np.floor(f2)), src - 1)
+        s1 = min(int(np.ceil(f1)), s2)
+        taps = []
+        if s1 - f1 > 1e-3:
+            taps.append((s1 - 1, np.float32((s1 - f1) / cell)))
+        taps.extend((s, np.float32(1.0 / cell)) for s in range(s1, s2))
+        if f2 - s2 > 1e-3:
+            taps.append((s2, np.float32(min(min(f2 - s2, 1.0), cell)
+                                        / cell)))
+        rows.append(taps)
+    k = max(len(t) for t in rows)
+    idx = np.zeros((dst, k), np.int64)
+    wt = np.zeros((dst, k), np.float32)
+    for d, taps in enumerate(rows):
+        for j, (s, a) in enumerate(taps):
+            idx[d, j], wt[d, j] = s, a
+    return idx, wt
+
+
+def resize_area(img: np.ndarray, size) -> np.ndarray:
+    """uint8 (H, W) -> uint8 (h, w) for size = (w, h), OpenCV's
+    `cv2.resize(img, size, interpolation=cv2.INTER_AREA)` when shrinking
+    (h <= H, w <= W), bitwise: the pyramid levels of `PatchSampler`.
+
+    OpenCV's two routes for uint8, both here. The scale of each axis is
+    1 / (out / in) in float64. When both are whole numbers (within float64
+    epsilon), the block-mean route (`_area_fast`). Otherwise each axis's
+    cell of `scale` source pixels covers whole pixels and a fraction at
+    each end (`_area_tab`): a row is the float32 sum of its source pixels
+    times their weights, in order, and the output pixel the float32 sum
+    of its rows times theirs, rounded half to even and saturated.
+    Same size: a copy."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 2:
+        raise ValueError(f"resize_area takes uint8 (H, W), got "
+                         f"{img.dtype} {img.shape}")
+    w, h = int(size[0]), int(size[1])
+    H, W = img.shape
+    if not (1 <= h <= H and 1 <= w <= W):
+        raise ValueError(f"resize_area shrinks or copies: {W}x{H} -> "
+                         f"{w}x{h}")
+    if (h, w) == (H, W):
+        return img.copy()
+    scale_x, scale_y = 1.0 / (w / W), 1.0 / (h / H)
+    ix, iy = round(scale_x), round(scale_y)
+    eps = np.finfo(np.float64).eps
+    if abs(scale_x - ix) < eps and abs(scale_y - iy) < eps:
+        return _area_fast(img, iy, ix)
+    xi, xw = _area_tab(W, w, scale_x)
+    yi, yw = _area_tab(H, h, scale_y)
+    src = img.astype(np.float32)
+    out = np.zeros((h, w), np.float32)
+    for j in range(yi.shape[1]):
+        row = np.zeros((h, w), np.float32)
+        s = src[yi[:, j]]
+        for k in range(xi.shape[1]):
+            row += s[:, xi[:, k]] * xw[:, k]
+        out += yw[:, j, None] * row
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)

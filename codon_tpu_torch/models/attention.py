@@ -128,12 +128,25 @@ def ca_layer(p, prefix, x, ops, mask=None):
 # non-local primitives
 # ---------------------------------------------------------------------------
 
+def _whole_image(ops, what):
+    """Raise NotImplementedError when `ops` holds one shard of the image
+    (`parallel.ops.ShardedOps`): whole-image attention there would attend
+    within the shard, finite and wrong. JAX documents the same primitives
+    as single-shard only."""
+    if getattr(ops, "sharded", False):
+        raise NotImplementedError(
+            f"{what} attends over the whole image: it does not run on a "
+            f"spatial shard (no zoo net calls it)")
+
+
 def pam(p, prefix, x, ops, mask=None):
     """Position attention (DANet): softmax(Q K^T) over pixels.
 
     Quadratic in pixels: its (N, HW, HW) energy alone is 136 GB in float32
     at 480 x 384, so it runs at small sizes only (no net reaches it).
+    Whole images only: a sharded backend raises.
     """
+    _whole_image(ops, "pam")
     n, h, w, c = x.shape
     q = conv_p(p, f"{prefix}.query_conv", x, ops, mask).reshape(n, h * w, -1)
     k = conv_p(p, f"{prefix}.key_conv", x, ops, mask).reshape(n, h * w, -1)
@@ -153,7 +166,9 @@ def pam(p, prefix, x, ops, mask=None):
 
 
 def cam(p, prefix, x, ops=None, mask=None):
-    """Channel attention: C x C gram, max-subtracted softmax."""
+    """Channel attention: C x C gram, max-subtracted softmax. Whole
+    images only: a sharded backend raises."""
+    _whole_image(ops, "cam")
     n, h, w, c = x.shape
     xf = x.reshape(n, h * w, c)
     energy = torch.einsum("bpi,bpj->bij", xf, xf)

@@ -29,8 +29,9 @@ differentiates the plain stage), and a spatially sharded backend
 (`parallel.ops.ShardedOps`) over every shard of it.
 
 The entry points run under `torch.no_grad()` for eval; training calls
-their grad-enabled siblings `codon_forward_train` and
-`sequential_tower_forward_train`, the same functions with autograd on.
+their grad-enabled siblings `codon_forward_train`,
+`codon_forward_fused_train` and `sequential_tower_forward_train`, the
+same functions with autograd on.
 
 Two more forwards take the same parameter tree: `codon_forward_fused`
 runs both towers in one 2W-channel tensor with grouped convs (variant
@@ -389,20 +390,33 @@ def codon_forward_fused(params, depth, color, *,
     ("conv3+conv6"), which the int8 backends resolve through the packed
     sites' scales. There are no handoffs (roundtrip, precommit), as in JAX.
     On the card the CAC stage runs the three kernels on the halves of T and
-    of the stem output in place, writing the next T in one pass; on the CPU
-    and under cac_impl="torch", the plain stage of the JAX form.
+    of the stem output in place, writing the next T in one pass (training:
+    `codon_forward_fused_train`); on the CPU and under cac_impl="torch",
+    the plain stage of the JAX form.
     `color_cat_swapped` is not lowered here and raises.
     """
-    if cfg.color_cat_swapped:
-        raise NotImplementedError(
-            "codon_forward_fused hardcodes the cell concat order; use "
-            "codon_forward for color_cat_swapped configs")
+    with full_fp32():
+        return _forward_fused(params, depth, color, cfg,
+                              TorchOps() if ops is None else ops, mask)
+
+
+def codon_forward_fused_train(params, depth, color, *,
+                              cfg: CodonConfig = CodonConfig(),
+                              ops: Optional[TorchOps] = None, mask=None):
+    """`codon_forward_fused` with autograd on, for training. The kernel
+    stage is `CacStageFunction` on the halves of T (their pitch 2W), which
+    returns two fresh towers; the next T is their concat, one 2W read and
+    write a stage, where the eval forward writes it in place."""
     with full_fp32():
         return _forward_fused(params, depth, color, cfg,
                               TorchOps() if ops is None else ops, mask)
 
 
 def _forward_fused(params, depth, color, cfg, ops, mask):
+    if cfg.color_cat_swapped:
+        raise NotImplementedError(
+            "codon_forward_fused hardcodes the cell concat order; use "
+            "codon_forward for color_cat_swapped configs")
     cdt = cfg.dtypes.compute_dtype
     relu = torch.relu
     w = cfg.width
@@ -449,11 +463,14 @@ def _forward_fused(params, depth, color, cfg, ops, mask):
         cac_i = {k: v[i] for k, v in cac.items()}
         out, out_c = T[..., :w], T[..., w:]
         if use_kernels:
+            args = (out, out_c, inputs2[..., :w], inputs2[..., w:],
+                    cac_i["ch_w1"], cac_i["ch_b1"], cac_i["ch_w2"],
+                    cac_i["ch_b2"], cac_i["sp_w"])
+            if torch.is_grad_enabled():
+                T = cat(*ops.cac_stage(*args, mask=mask))
+                continue
             nxt = torch.empty_like(T)
-            ops.cac_stage(out, out_c, inputs2[..., :w], inputs2[..., w:],
-                          cac_i["ch_w1"], cac_i["ch_b1"], cac_i["ch_w2"],
-                          cac_i["ch_b2"], cac_i["sp_w"], mask=mask,
-                          dst=(nxt[..., :w], nxt[..., w:]))
+            ops.cac_stage(*args, mask=mask, dst=(nxt[..., :w], nxt[..., w:]))
             T = nxt
             continue
         ch = cac_channel_gate((out_c, out), cac_i["ch_w1"], cac_i["ch_b1"],

@@ -5,7 +5,9 @@ The CODONNet family runs `codon_forward`, the merged-tower `codon_fused`
 (`codon_forward_fused`) and the attention-free `rmcr_fuse_rmcr`
 (`sequential_tower_forward`) on `init_codon_params`' tree. Every net of the
 ablation zoo is addressable as "zoo:<name>" (`models.zoo`), with the zoo's
-own init and a forward that is its own training forward.
+own init and forward. Every `Variant` pickles (its functions are
+module-level functions or instances of module-level classes), so a mesh
+rank receives one by value.
 """
 from __future__ import annotations
 
@@ -17,12 +19,13 @@ import torch
 from codon_tpu_torch.core.params import DTypePolicy, FP32
 from codon_tpu_torch.models import zoo
 from codon_tpu_torch.models.codon_net import (
-    CodonConfig, codon_forward, codon_forward_fused, codon_forward_train,
-    init_codon_params, sequential_tower_forward,
-    sequential_tower_forward_train)
+    CodonConfig, codon_forward, codon_forward_fused,
+    codon_forward_fused_train, codon_forward_train, init_codon_params,
+    sequential_tower_forward, sequential_tower_forward_train)
 
 # each eval forward's grad-enabled sibling; the zoo's are added below
 _TRAIN_FORWARDS = {codon_forward: codon_forward_train,
+                   codon_forward_fused: codon_forward_fused_train,
                    sequential_tower_forward: sequential_tower_forward_train}
 # the X4/X8 checkpoint-compat heads: no CODONNet forward reads them, and a
 # warm start from an X4 checkpoint carries them into every CODONNet variant
@@ -54,9 +57,7 @@ class Variant:
         forward."""
         if self.forward_fn not in _TRAIN_FORWARDS:
             raise NotImplementedError(
-                f"variant {self.name!r} does not train yet: its merged-tower "
-                f"stage writes the next tensor through views, an eval-only "
-                f"form (ROADMAP Queue A, codon_fused training)")
+                f"variant {self.name!r} has no training forward")
 
     def train_forward(self, params, depth, color, mask=None, ops=None):
         """The forward with autograd on, for training."""
@@ -80,23 +81,42 @@ def _register(name: str, doc: str, forward_fn=codon_forward,
     _REGISTRY[name] = (builder, doc)
 
 
-def _register_zoo(zname: str) -> None:
-    entry = zoo.ZOO[zname]
+@dataclasses.dataclass(frozen=True)
+class _ZooInit:
+    """A zoo net's init, (gen, cfg, device=...) -> its flat tree. A
+    module-level class, so a zoo `Variant` pickles by value to a mesh
+    rank."""
+    zname: str
 
-    def init_fn(gen, cfg, device="cuda"):
-        return zoo.zoo_init(zname, gen, dtype=cfg.dtypes.param_dtype,
+    def __call__(self, gen, cfg, device="cuda"):
+        return zoo.zoo_init(self.zname, gen, dtype=cfg.dtypes.param_dtype,
                             device=device)
 
-    def train_fn(params, depth, color, *, cfg, mask=None, ops=None):
-        return zoo.zoo_forward(zname, params, depth, color,
-                               dtypes=cfg.dtypes, ops=ops, mask=mask)
 
-    eval_fn = torch.no_grad()(train_fn)
-    _TRAIN_FORWARDS[eval_fn] = train_fn
+@dataclasses.dataclass(frozen=True)
+class _ZooForward:
+    """A zoo net's forward: under `torch.no_grad()` for eval, with autograd
+    as the caller has it for training (`grad`). Equal instances hash
+    alike, so an unpickled eval forward still finds its training sibling
+    in `_TRAIN_FORWARDS`."""
+    zname: str
+    grad: bool = False
+
+    def __call__(self, params, depth, color, *, cfg, mask=None, ops=None):
+        with torch.set_grad_enabled(self.grad and torch.is_grad_enabled()):
+            return zoo.zoo_forward(self.zname, params, depth, color,
+                                   dtypes=cfg.dtypes, ops=ops, mask=mask)
+
+
+def _register_zoo(zname: str) -> None:
+    entry = zoo.ZOO[zname]
+    eval_fn = _ZooForward(zname)
+    _TRAIN_FORWARDS[eval_fn] = _ZooForward(zname, grad=True)
 
     def builder(dtypes):
         return Variant(f"zoo:{zname}", CodonConfig(dtypes=dtypes),
-                       entry["doc"], eval_fn, init_fn, entry["unread"])
+                       entry["doc"], eval_fn, _ZooInit(zname),
+                       entry["unread"])
     _REGISTRY[f"zoo:{zname}"] = (builder, entry["doc"])
 
 

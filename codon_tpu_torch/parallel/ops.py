@@ -22,7 +22,11 @@ transpose rules of `ppermute`, `psum` and `all_gather`).
 
 Convs are SAME-padded in every backend of the port, so there is no other
 padding to refuse. Grouped convs (`groups`, the merged-tower forward's)
-exchange halo rows of the whole grouped input.
+exchange halo rows of the whole grouped input. The zoo's gates run 1x1
+convs on pooled (N, 1, 1, C) vectors, replicated on every shard: halo 0,
+no exchange (`check_pooled`). Its whole-image attention (`pam`, `cam`)
+raises on a sharded backend (`sharded`), where it would attend within a
+shard; no zoo net calls it.
 """
 from __future__ import annotations
 
@@ -33,6 +37,18 @@ from codon_tpu_torch.kernels import cac as _cac
 from codon_tpu_torch.parallel.comm import all_sum, global_max, halo_rows
 
 
+def check_pooled(x, r):
+    """Raise unless a conv of halo r may run on x: a pooled (N, 1, 1, C)
+    vector (RCAN's `ca_layer`, the zoo's channel gates) is the same on
+    every shard, not a block of rows, so only a 1x1 conv (r = 0, no halo
+    exchange) runs on it."""
+    if r and x.shape[1] == 1 and x.shape[2] == 1:
+        raise ValueError(f"a {2 * r + 1}x{2 * r + 1} conv on a pooled "
+                         f"{tuple(x.shape)} vector: the vector is "
+                         f"replicated on every shard, so it takes 1x1 "
+                         f"convs only")
+
+
 class ShardedOps(TorchOps):
     """Ops for one rank's shard of a spatially sharded image.
 
@@ -41,12 +57,17 @@ class ShardedOps(TorchOps):
     in place of a mesh (`CacStageFunction`'s backward).
     """
 
+    # whole-image attention (`models.attention.pam`, `cam`) refuses a
+    # backend that holds one shard of the image
+    sharded = True
+
     def __init__(self, mesh=None, group=None):
         self.group = mesh.sp_group if mesh is not None else group
 
     def conv2d(self, x, w, *, mask=None, groups=1, name=None):
         del name
         r = (w.shape[0] - 1) // 2
+        check_pooled(x, r)
         out = conv2d_nhwc(halo_rows(x, r, self.group), w, groups, halo=r)
         return self.apply_mask(out, mask)
 

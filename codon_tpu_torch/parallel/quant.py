@@ -31,7 +31,7 @@ import torch
 
 from codon_tpu_torch.kernels.quant import int8_conv
 from codon_tpu_torch.parallel.comm import all_max, halo_rows
-from codon_tpu_torch.parallel.ops import ShardedOps
+from codon_tpu_torch.parallel.ops import ShardedOps, check_pooled
 from codon_tpu_torch.quant_ops import (Int8StaticOps, _check_impl,
                                        _fold_weights, _fq, _int8_conv,
                                        _skip_quant, _StaticFakeQuantMixin,
@@ -73,6 +73,7 @@ class Int8ShardedOps(ShardedOps):
         if _skip_quant(w):
             return super().conv2d(x, w, mask=mask, groups=groups, name=name)
         r = (w.shape[0] - 1) // 2
+        check_pooled(x, r)
         return _int8_conv(halo_rows(x, r, self.group), w, mask=mask,
                           sx=_gathered_sample_scale(x, self.group),
                           impl=self.quant_impl, groups=groups, halo=r)

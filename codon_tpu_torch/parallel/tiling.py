@@ -21,18 +21,10 @@ from codon_tpu_torch.parallel.launch import (ForwardSpec, MeshPool,
                                              member_backend)
 from codon_tpu_torch.parallel.stitch import params_device
 
-# the widest stencil of the nets that run sharded: the 5x5 convs and the
-# CAC spatial gate read 2 rows across each shard seam
+# the widest stencil of the nets that run sharded: CODONNet's 5x5 convs
+# and CAC spatial gate, and the zoo's 5x5 spatial gates, read 2 rows
+# across each shard seam
 MAX_HALO = 2
-
-
-def check_variant(variant) -> None:
-    """Raise NotImplementedError for a variant that does not run under a
-    mesh yet (the zoo)."""
-    if variant.name.startswith("zoo:"):
-        raise NotImplementedError(
-            f"{variant.name} under a mesh: the zoo's sharded forward is "
-            f"ROADMAP Queue A item A13c")
 
 
 def check_blocks(mesh, B, H) -> None:
@@ -63,7 +55,6 @@ def make_sharded_forward(variant, mesh, ops_factory=None, local_ops=None,
     scales ride each member's parameter tree. check_nans: every rank's
     backend checks each conv site's output (`launch.ForwardSpec`).
     """
-    check_variant(variant)
     spec = ForwardSpec(variant, ops_factory, local_ops, scales_factory,
                        check_nans)
     members = {}
@@ -142,7 +133,6 @@ def make_tiled_forward(variant, n_devices: int, dp_devices: int = 1,
     sp, dp = max(1, n_devices), max(1, dp_devices)
     own = None
     if sp * dp == 1:
-        check_variant(variant)
         inner = _local_forward(ForwardSpec(variant, None, local_ops,
                                            scales_factory, check_nans))
     else:

@@ -45,7 +45,7 @@ from codon_tpu_torch.parallel import comm, launch
 from codon_tpu_torch.parallel.ops import ShardedOps
 from codon_tpu_torch.parallel.quant import (FakeQuantShardedOps,
                                             FakeQuantStaticShardedOps)
-from codon_tpu_torch.parallel.tiling import check_blocks, check_variant
+from codon_tpu_torch.parallel.tiling import check_blocks
 from codon_tpu_torch.quant_ops import FakeQuantOps, FakeQuantStaticOps
 from codon_tpu_torch.train.trainer import (TrainConfig, TrainStep,
                                            loss_of_sums, loss_sums,
@@ -209,7 +209,6 @@ class MeshTrainStep:
 
     def __init__(self, variant, cfg: TrainConfig, mesh, ops=None,
                  check_finite: bool = False):
-        check_variant(variant)
         variant.check_trainable()
         self.spec = TrainSpec(variant, cfg, backend_spec(ops),
                               check_finite)

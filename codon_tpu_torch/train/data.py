@@ -21,7 +21,7 @@ from typing import Iterator, List
 
 import numpy as np
 
-from codon_tpu_torch.data.resize import resize_cubic
+from codon_tpu_torch.data.resize import resize_area, resize_cubic
 
 
 def synthesize_lr(label: np.ndarray, scale: int) -> np.ndarray:
@@ -50,9 +50,12 @@ class PatchSampler:
                      input repaired in a band around the seam;
       cond           per-pair conditioning scalar: the depth batch gains
                      a second constant channel (scale-conditioned
-                     training, `cli train --scale-cond`).
-    `pyramid` (multi-scale levels resized with OpenCV's INTER_AREA) is not
-    ported: a non-empty one raises.
+                     training, `cli train --scale-cond`);
+      pyramid        scales below 1 of extra levels (augment "full"
+                     only): the labels and colors shrunk with OpenCV's
+                     INTER_AREA (`data.resize.resize_area`), the degraded
+                     maps synthesized from the shrunk labels; a patch
+                     draws its level uniformly.
     """
 
     labels: List[np.ndarray]          # uint8 GT depth images
@@ -73,11 +76,6 @@ class PatchSampler:
         if len(self.labels) != len(self.colors):
             raise ValueError(f"{len(self.labels)} labels for "
                              f"{len(self.colors)} guidance images")
-        if self.pyramid:
-            raise NotImplementedError(
-                "PatchSampler.pyramid (INTER_AREA levels) is not ported "
-                "yet (ROADMAP Queue A, PatchSampler.pyramid); the default "
-                "() trains without it")
         small = [i for i, l in enumerate(self.labels)
                  if min(l.shape) < self.patch]
         if small:
@@ -110,9 +108,11 @@ class PatchSampler:
         else:
             base_degraded = [synthesize_lr(l, self.scale)
                              for l in self.labels]
-        # one level: (labels, colors, degraded); the JAX sampler draws a
-        # level index a patch all the same, and so does this one
+        # levels[k] = (labels, colors, degraded) at pyramid scale k
         self._levels = [(self.labels, self.colors, base_degraded)]
+        for s in (self.pyramid if self.augment == "full" else ()):
+            if s < 1.0:
+                self._levels.append(self._level(s))
         self._edge_yx = None
         if self.edge_bias:
             if not 0.0 < self.edge_bias <= 1.0:
@@ -129,6 +129,19 @@ class PatchSampler:
                     thr = max(float(np.percentile(gm, 90.0)), 1e-3)
                     per.append(np.nonzero(gm >= thr))
                 self._edge_yx.append(per)
+
+    def _level(self, s: float) -> tuple:
+        """The pyramid level at scale s: labels and colors shrunk with
+        OpenCV's INTER_AREA (`resize_area`), each side at least `patch`,
+        and the degraded maps synthesized anew from the shrunk labels."""
+        labs, cols, degs = [], [], []
+        for lab, col in zip(self.labels, self.colors):
+            h, w = lab.shape
+            size = (max(self.patch, int(w * s)), max(self.patch, int(h * s)))
+            labs.append(resize_area(lab, size))
+            cols.append(resize_area(col, size))
+            degs.append(synthesize_lr(labs[-1], self.scale))
+        return labs, cols, degs
 
     def __iter__(self) -> Iterator[dict]:
         while True:

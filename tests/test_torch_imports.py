@@ -63,7 +63,10 @@ def test_card_files_exist():
                  "codon_tpu_torch/parallel/tiling.py",
                  "codon_tpu_torch/parallel/stitch.py",
                  "codon_tpu_torch/parallel/dryrun.py",
-                 "codon_tpu_torch/parallel/train.py"):
+                 "codon_tpu_torch/parallel/train.py",
+                 "codon_tpu_torch/data/resize.py",
+                 "codon_tpu_torch/soup.py",
+                 "codon_tpu_torch/sc_cond_probe.py"):
         assert need in names
     assert all(os.path.exists(p) for p in _card_files())
 

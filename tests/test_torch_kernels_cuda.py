@@ -892,6 +892,45 @@ def test_cuda_cac_stage_function(dtype, shape, valid, corner, monkeypatch):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@needs_cuda
+def test_cuda_cac_stage_function_on_pitched_halves(dtype, monkeypatch):
+    """codon_fused's training stage: CacStageFunction on the two halves of
+    one (N, H, W, 2C) tensor T and of the stem output (a tower pitch of
+    2C). Forward: one launch of each kernel, against the plain stage on
+    the same views; backward: no launch, and the gradients of T and the
+    stem output (through the views) and of the weights bitwise those of
+    autograd of the plain stage."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    T, inputs2, m, _, _ = _merged_inputs(dtype, 132, valid=[(H, W),
+                                                           (19, 15)])
+    ws = [to_torch(w, "cuda").requires_grad_() for w in cac_weights(83)]
+    T.requires_grad_()
+    inputs2.requires_grad_()
+
+    def halves():
+        return (T[..., :C], T[..., C:], inputs2[..., :C], inputs2[..., C:])
+
+    tcac.reset_launches()
+    got = tcac.CacStageFunction.apply(*halves(), *ws, m)
+    assert tcac.launches() == {"cac_stats": 1, "spatial_logits": 1,
+                               "cac_apply": 1}
+    want = tnet.cac_stage_torch(*halves(), *ws, mask=m)
+    atol, rtol = STAGE_TOLS[dtype]
+    for g, w in zip(got, want):
+        _close(g, w, atol, rtol)
+    g = torch.Generator(device="cuda").manual_seed(84)
+    cot = [torch.randn(t.shape, generator=g, device="cuda").to(dtype)
+           for t in got]
+    leaves = [T, inputs2, *ws]
+    ga = torch.autograd.grad(torch.cat(got, -1), leaves, torch.cat(cot, -1))
+    assert sum(tcac.launches().values()) == 3
+    gb = torch.autograd.grad(torch.cat(want, -1), leaves, torch.cat(cot, -1))
+    for a, b in zip(ga, gb):
+        assert torch.equal(a, b)
+
+
 def _grad_distance(a, b):
     """(tree relative L2 of a - b, the worst leaf's max |a - b| over its
     max |b|) over the leaves with a gradient."""
@@ -948,6 +987,42 @@ def test_cuda_train_step_launches_and_gradients():
     ref = res["fp32", "torch"][1]
     assert (_grad_distance(res["bf16", "kernel"][1], ref)[0]
             <= 1.5 * _grad_distance(res["bf16", "torch"][1], ref)[0])
+
+
+@needs_cuda
+def test_cuda_fused_train_step_launches_and_gradients():
+    """One codon_fused training step on the card: 5 launches of each CAC
+    kernel, all in the forward; loss and gradients against the same step
+    with the plain stage and against codon's kernel step, at fp32's
+    TRAIN_TOLS (loss rtol 1e-5, tree 1e-3, leaf 1e-2)."""
+    from codon_tpu_torch.checkpoint.native import load_npz, params_from_numpy
+    from codon_tpu_torch.models.variants import get_variant
+    from codon_tpu_torch.train.trainer import TrainConfig, make_train_step
+
+    params = params_from_numpy(
+        load_npz(os.path.join(CKPT_DIR, "x4_ship4.npz")), "cuda")
+    rng = np.random.RandomState(91)
+    batch = {k: to_torch(rng.rand(2, 32, 32, 1).astype(np.float32), "cuda")
+             for k in ("depth", "color", "label")}
+    batch["mask"] = torch.ones_like(batch["depth"])
+    res = {}
+    for name, impl in (("codon_fused", "kernel"), ("codon_fused", "torch"),
+                       ("codon", "kernel")):
+        v = get_variant(name)
+        v = dataclasses.replace(v, cfg=dataclasses.replace(v.cfg,
+                                                           cac_impl=impl))
+        step, _ = make_train_step(v, TrainConfig())
+        tcac.reset_launches()
+        res[name, impl] = step.value_and_grad(params, batch)
+        # the forward's 5 stages launch once each; the backward none
+        want = 5 if impl == "kernel" else 0
+        assert tcac.launches() == {"cac_stats": want, "spatial_logits": want,
+                                   "cac_apply": want}
+    lk, gk = res["codon_fused", "kernel"]
+    for ref in (res["codon_fused", "torch"], res["codon", "kernel"]):
+        assert abs(float(lk) - float(ref[0])) <= 1e-5 * abs(float(ref[0]))
+        tree, worst = _grad_distance(gk, ref[1])
+        assert tree <= 1e-3 and worst <= 1e-2, (tree, worst)
 
 
 # the zoo's narrow int8 sites: (x shape, HWIO w shape, groups): RCAN's

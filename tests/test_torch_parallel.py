@@ -302,8 +302,9 @@ def test_tile_stitch_short_frame_runs_whole():
 
 
 def test_sharded_forward_refuses_what_it_cannot_run(pool, setup):
-    """Rows a shard must have, shapes the mesh must divide, the zoo: each
-    raises on rank 0 before a rank is asked, and the pool stays usable."""
+    """Rows a shard must have and shapes the mesh must divide each raise
+    on rank 0 before a rank is asked, and the pool stays usable; the zoo
+    runs (its sharded forwards are in tests/test_torch_parallel_zoo.py)."""
     s = setup
     fwd = make_sharded_forward(s["v"], pool.mesh(1, 8))
     d = to_torch(s["depth"][:, :8])
@@ -312,8 +313,11 @@ def test_sharded_forward_refuses_what_it_cannot_run(pool, setup):
     d = to_torch(s["depth"][:, :44])
     with pytest.raises(ValueError, match="must divide"):
         fwd(s["params"], d, d, torch.ones_like(d))
-    with pytest.raises(NotImplementedError, match="A13c"):
-        make_tiled_forward(get_variant("zoo:basenet"), 2, 1, pool=pool)
+    zv = get_variant("zoo:basenet")
+    zp = zv.init(torch.Generator().manual_seed(0), device="cpu")
+    d, c = to_torch(s["depth"]), to_torch(s["color"])
+    _close(make_tiled_forward(zv, 2, 1, pool=pool)(zp, d, c, None),
+           zv.forward(zp, d, c))
     assert not pool.closed
     out = tiled_infer(s["v"], s["params"], s["depth"], s["color"],
                       mesh=pool.mesh(1, 2))

@@ -135,11 +135,26 @@ def test_cli_nccl_on_the_cpu_raises(tmp_path, capsys):
 
 
 def test_zoo_under_a_mesh_raises(tmp_path, capsys):
+    """The zoo no longer raises under a mesh: `cli eval --variant
+    zoo:basenet` over dp=2 x sp=2 writes the single-device eval's PNGs
+    within the class, and no rank launches a CAC kernel or calls the CAC
+    stage."""
     data = str(tmp_path / "d")
-    write_scale_dir(data, SIZES[:1], seed=6)
-    with pytest.raises(NotImplementedError, match="A13c"):
-        _eval(data, str(tmp_path / "o"),
-              ["--variant", "zoo:basenet", *MESH], capsys)
+    names = write_scale_dir(data, SIZES, seed=6)
+    extra = ["--variant", "zoo:basenet"]
+    single, _ = _eval(data, str(tmp_path / "one"), extra, capsys)
+    mesh, said = _eval(data, str(tmp_path / "mesh"), extra + MESH, capsys)
+    assert "mesh eval: dp=2 x sp=2 over 4 devices; backend gloo" in said
+    assert [r["name"] for r in mesh["per_image"]] == names
+    for c in mesh["mesh"]["ranks"]:
+        assert c["stages"] == {"whole": 0, "shard": 0}
+        assert c["comm"]["halo_rows"]["calls"] > 0
+    for m, s in zip(mesh["per_image"], single["per_image"]):
+        a = imread_gray(str(tmp_path / "mesh" / (m["name"] + ".png")))
+        b = imread_gray(str(tmp_path / "one" / (m["name"] + ".png")))
+        d = np.abs(a.astype(float) - b.astype(float))
+        assert d.mean() <= PNG_MEAN and d.max() <= PNG_MAX
+        assert abs(m["rmse"] - s["rmse"]) <= np.sqrt((d ** 2).mean()) + 1e-6
 
 
 def test_worker_exception_reaches_the_caller():

@@ -306,35 +306,86 @@ def test_sharded_stage_function_matches_single(pool, sp, masked):
 # the step
 # ---------------------------------------------------------------------------
 
+def matches_jax_sharded(pool, jv, v, jparams, batch, form=(2, 4),
+                        ops=None, jops=None, grad_class=None):
+    """The port's sharded step over `form` against JAX's over the same
+    mesh, from JAX's parameters `jparams` and the numpy `batch`: the loss
+    against JAX's sharded step, the summed gradient against `jax.grad` of
+    JAX's single-device loss, and the parameters after one step against
+    JAX's sharded step's. grad_class (tree L2, per leaf): hold the
+    gradient in that class instead, and leave the parameters to the
+    caller, for a net whose single-device gradients already differ
+    between the packages. -> the port's (loss, gradient leaves)."""
+    jcfg = JaxConfig(learning_rate=LR)
+    jstep, jtx = jax_train_step(jv, jcfg, mesh=jax_make_mesh(list(form)),
+                                donate=False, ops=jops)
+    jp, _, jm = jstep(jparams, jtx.init(jparams), batch)
+
+    def jloss(p, b):
+        out = jv.forward(p, b["depth"], b["color"], mask=b["mask"],
+                         ops=jops)
+        return jnp.sum(jnp.abs((out - b["label"]) * b["mask"])) / jnp.sum(
+            b["mask"])
+
+    jl, jg = jax.value_and_grad(jloss)(jparams, batch)
+    params, tb = _port_params(jparams), _torch_batch(batch)
+    cfg = TrainConfig(learning_rate=LR)
+    mesh = pool.mesh(*form)
+    step, _ = make_train_step(v, cfg, mesh=mesh, ops=ops)
+    loss, grads = step.value_and_grad(params, tb)
+    assert abs(float(loss) - float(jm["loss"])) <= LOSS_RTOL * abs(
+        float(jm["loss"]))
+    assert abs(float(loss) - float(jl)) <= LOSS_RTOL * abs(float(jl))
+    jgrads = [t for _, t in tree_items(_port_params(jg))]
+    paths = [p for p, _ in tree_items(params)]
+    if grad_class is not None:
+        _grads_in_class(grads, jgrads, paths, *grad_class)
+        return loss, grads
+    _grads_close(grads, jgrads, paths)
+    p, ms, _ = _steps(v, cfg, params, tb, mesh=mesh, ops=ops)
+    assert abs(ms[0]["loss"] - float(jm["loss"])) <= LOSS_RTOL * abs(
+        float(jm["loss"]))
+    _params_close(p, _port_params(jp), [jgrads])
+    return loss, grads
+
+
+def _grads_in_class(got, want, paths, tree_l2, leaf_tol):
+    """The gradient tree within `tree_l2` relative L2 distance of want's,
+    and each leaf within `leaf_tol` of its max |g|."""
+    num = den = 0.0
+    for path, g, w in zip(paths, got, want):
+        g, w = to_np(g), to_np(w)
+        num += float(((g - w) ** 2).sum())
+        den += float((w ** 2).sum())
+        assert np.abs(g - w).max() <= leaf_tol * max(np.abs(w).max(),
+                                                     1e-30), path
+    assert (num / den) ** 0.5 <= tree_l2
+
+
 def test_sharded_step_matches_jax(pool, case):
     """tests/test_train.py::test_sharded_step_matches_single over the
     port's 2 x 4 mesh: the loss against JAX's sharded step, the summed
     gradient against `jax.grad` of JAX's single-device loss, and the
     parameters after the step against JAX's sharded step's."""
     c = case
-    mesh = pool.mesh(2, 4)
-    jcfg = JaxConfig(learning_rate=LR)
-    jstep, jtx = jax_train_step(c["jv"], jcfg, mesh=jax_make_mesh([2, 4]),
-                                donate=False)
-    jp, _, jm = jstep(c["jparams"], jtx.init(c["jparams"]), c["batch"])
+    matches_jax_sharded(pool, c["jv"], c["v"], c["jparams"], c["batch"])
 
-    def jloss(p, b):
-        out = c["jv"].forward(p, b["depth"], b["color"], mask=b["mask"])
-        return jnp.sum(jnp.abs((out - b["label"]) * b["mask"])) / jnp.sum(
-            b["mask"])
 
-    jl, jg = jax.value_and_grad(jloss)(c["jparams"], c["batch"])
-    step, _ = make_train_step(c["v"], c["cfg"], mesh=mesh)
-    loss, grads = step.value_and_grad(c["params"], c["tb"])
-    assert abs(float(loss) - float(jm["loss"])) <= LOSS_RTOL * abs(
-        float(jm["loss"]))
-    assert abs(float(loss) - float(jl)) <= LOSS_RTOL * abs(float(jl))
-    jgrads = [t for _, t in tree_items(_port_params(jg))]
-    _grads_close(grads, jgrads, c["paths"])
-    p, ms, _ = _steps(c["v"], c["cfg"], c["params"], c["tb"], mesh=mesh)
-    assert abs(ms[0]["loss"] - float(jm["loss"])) <= LOSS_RTOL * abs(
-        float(jm["loss"]))
-    _params_close(p, _port_params(jp), [jgrads])
+def test_sharded_fused_step_matches_jax(pool, case):
+    """codon_fused over the 2 x 4 mesh (the kernel stage on the halves of
+    T, `CacStageFunction` over the sp group, the kernels' plain versions
+    here) against JAX's sharded codon_forward_fused step, and its loss
+    and gradients against the port's single-device codon step."""
+    c = case
+    fused = get_variant("codon_fused")
+    v = dataclasses.replace(fused, cfg=dataclasses.replace(
+        fused.cfg, cac_impl="kernel"))
+    reset_rank_counts()
+    loss, grads = matches_jax_sharded(pool, jax_variant("codon_fused"), v,
+                                      c["jparams"], c["batch"])
+    assert kc.stage_calls()["shard"] > 0
+    assert abs(float(loss) - c["loss"]) <= LOSS_RTOL * abs(c["loss"])
+    _grads_close(grads, c["grads"], c["paths"])
 
 
 @pytest.mark.parametrize("form", [(2, 1), (1, 4), (2, 2)],
@@ -500,15 +551,21 @@ def test_sharded_qat_step_matches_single(pool, qat_case, kind):
 # ---------------------------------------------------------------------------
 
 def test_sharded_step_refuses_what_it_cannot_run(pool, case):
-    """A backend without a sharded twin, the zoo and shapes the mesh does
-    not divide each raise before a rank is asked; the pool stays usable."""
+    """A backend without a sharded twin and shapes the mesh does not
+    divide each raise before a rank is asked; the pool stays usable. The
+    zoo trains: its sharded loss is the single-device loss."""
     c = case
     mesh = pool.mesh(2, 4)
     with pytest.raises(NotImplementedError,
                        match="no sharded twin for ops backend Int8Ops"):
         make_train_step(c["v"], c["cfg"], ops=tq.Int8Ops(), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A13c"):
-        make_train_step(get_variant("zoo:basenet"), c["cfg"], mesh=mesh)
+    # the zoo trains under a mesh (tests/test_torch_parallel_zoo_train.py)
+    zv = get_variant("zoo:basenet")
+    zp = zv.init(torch.Generator().manual_seed(0), device="cpu")
+    zloss = make_train_step(zv, c["cfg"])[0].value_and_grad(zp, c["tb"])[0]
+    zmesh = make_train_step(zv, c["cfg"], mesh=mesh)[0]
+    assert abs(float(zmesh.value_and_grad(zp, c["tb"])[0]) - float(zloss)) \
+        <= LOSS_RTOL * abs(float(zloss))
     step, opt = make_train_step(c["v"], c["cfg"], mesh=mesh)
     odd = {k: t[:1] for k, t in c["tb"].items()}
     with pytest.raises(ValueError, match="must divide"):

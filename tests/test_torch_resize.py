@@ -1,6 +1,11 @@
-"""The port's bicubic resize (`codon_tpu_torch.data.resize`) against
-OpenCV's `cv2.resize(..., INTER_CUBIC)`, which the JAX package's training
-data synthesis calls.
+"""The port's bicubic and area resizes (`codon_tpu_torch.data.resize`)
+against OpenCV's `cv2.resize(..., INTER_CUBIC)` and `INTER_AREA`, which
+the JAX package's training data synthesis and its sampler's pyramid call.
+
+`resize_area` is bitwise OpenCV's on uint8 at every size: whole factors
+(the block-mean route, the 2 x 2 block's own rounding included), other
+factors (fractional box weights, float32 sums), odd sizes, one axis at
+factor 1, and a copy at the same size.
 
 Tolerances, and why, on random images from a seed, down by 4, 8 and 16
 and back up:
@@ -20,7 +25,7 @@ import cv2
 import numpy as np
 import pytest
 
-from codon_tpu_torch.data.resize import resize_cubic
+from codon_tpu_torch.data.resize import resize_area, resize_cubic
 
 from torch_port_common import one_torch_thread  # noqa: F401
 
@@ -81,3 +86,38 @@ def test_rejects_what_it_does_not_take():
         resize_cubic(np.zeros((4, 4, 1), np.uint8), (2, 2))
     with pytest.raises(ValueError):
         resize_cubic(np.zeros((4, 4), np.uint8), (0, 2))
+
+
+# (H, W) sources and (h, w) targets: the sampler's pyramid at 0.5, 0.6
+# and 0.75 of a Middlebury frame and of small odd frames; whole factors
+# 2, 3, 4 and mixed (2, 3), (1, 2); a copy
+AREA_CASES = [((370, 463), (185, 231)), ((370, 463), (222, 277)),
+              ((370, 463), (277, 347)), ((75, 67), (37, 33)),
+              ((75, 67), (56, 50)), ((33, 29), (32, 29)), ((17, 15), (5, 4)),
+              ((64, 80), (32, 40)), ((63, 81), (21, 27)), ((64, 80), (16, 20)),
+              ((60, 90), (30, 30)), ((48, 36), (48, 18)), ((31, 47), (31, 47))]
+
+
+@pytest.mark.parametrize("kind", ["random", "depth"])
+@pytest.mark.parametrize("src,dst", AREA_CASES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_area_matches_opencv(src, dst, kind):
+    (H, W), (h, w) = src, dst
+    rng = np.random.RandomState(H * W + h)
+    if kind == "random":
+        img = (rng.rand(H, W) * 256).astype(np.uint8)
+    else:
+        img = np.zeros((H, W), np.uint8)
+        img[:, W // 3:] = 251
+        img[H // 4:H // 2, : W // 2] = 7
+        img += (rng.rand(H, W) * 4).astype(np.uint8)
+    np.testing.assert_array_equal(
+        resize_area(img, (w, h)),
+        cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA))
+
+
+def test_area_rejects_what_it_does_not_take():
+    with pytest.raises(ValueError):
+        resize_area(np.zeros((4, 4), np.float32), (2, 2))
+    with pytest.raises(ValueError, match="shrinks or copies"):
+        resize_area(np.zeros((4, 4), np.uint8), (8, 2))

@@ -9,6 +9,10 @@ Tolerances, and why:
   OpenCV's, at most 1 code off on a few pixels (tests/test_torch_resize.py),
   so the depth patches are within 1/255 (times the affine's scale, <= 1)
   and at most 1% of their pixels differ; label and color stay bitwise.
+- the pyramid: its levels' labels and colors are OpenCV's INTER_AREA,
+  which the port repeats bitwise (`resize_area`), so they and the level-0
+  patches are bitwise JAX's; a higher level's degraded map is synthesized
+  from its labels, so it and its depth patches are in the class above.
 """
 import numpy as np
 import pytest
@@ -133,10 +137,57 @@ def test_prefetch_propagates_worker_errors():
 
 def test_refuses_what_it_does_not_port():
     labs, cols, degs = _imgs(n=1)
-    with pytest.raises(NotImplementedError, match="pyramid"):
-        PatchSampler(labs, cols, pyramid=(0.5,), degraded=degs)
+    # the pyramid is ported: one level a scale below 1, as JAX's
+    s = PatchSampler(labs, cols, patch=16, pyramid=(0.5,), degraded=degs)
+    assert len(s._levels) == 2
     with pytest.raises(ValueError, match="smaller than patch"):
         PatchSampler(labs, cols, patch=128, degraded=degs)
     with pytest.raises(ValueError, match="scene_weights"):
         PatchSampler(labs, cols, patch=16, degraded=degs,
                      scene_weights=[-1.0])
+
+
+PYRAMIDS = {"two": (0.5, 0.75), "with_one": (1.0, 0.6), "small": (0.3,)}
+
+
+@pytest.mark.parametrize("pyramid", sorted(PYRAMIDS))
+def test_pyramid_levels_match_jax(pyramid):
+    """Each level's labels and colors bitwise JAX's, its degraded maps in
+    the synthesized class; a scale >= 1 adds no level, and sides stay at
+    least `patch`."""
+    labs, cols, degs = _imgs(h=75, w=67, seed=4)
+    kw = dict(scale=4, patch=32, batch=6, seed=2, degraded=degs,
+              pyramid=PYRAMIDS[pyramid])
+    ours, ref = PatchSampler(labs, cols, **kw), JaxSampler(labs, cols, **kw)
+    assert len(ours._levels) == len(ref._levels) == 1 + sum(
+        s < 1 for s in PYRAMIDS[pyramid])
+    for k, (a, b) in enumerate(zip(ours._levels, ref._levels)):
+        for la, lb in zip(a[0] + a[1], b[0] + b[1]):
+            assert min(la.shape) >= 32
+            np.testing.assert_array_equal(la, lb)
+        for da, db in zip(a[2], b[2]):
+            if k == 0:
+                np.testing.assert_array_equal(da, db)
+                continue
+            d = np.abs(da.astype(np.int64) - db.astype(np.int64))
+            assert d.max() <= 1 and (d > 0).mean() <= SYN_SHARE
+
+
+@pytest.mark.parametrize("feature", ["plain", "edge_bias", "all"])
+def test_pyramid_patches_match_jax(feature):
+    """The level index is drawn where JAX draws it: label and color
+    patches bitwise, depth bitwise at level 0 and in the synthesized class
+    above it; without augment "full" there is no pyramid, as in JAX."""
+    labs, cols, degs = _imgs(h=75, w=67, seed=5)
+    kw = dict(scale=4, patch=32, batch=6, seed=9, degraded=degs,
+              pyramid=(0.5, 0.75), **FEATURES[feature])
+    ours, ref = PatchSampler(labs, cols, **kw), JaxSampler(labs, cols, **kw)
+    for step in (0, 1, 17):
+        _close_synthesized(ours.sample_at(step), ref.sample_at(step))
+    flat = PatchSampler(labs, cols, **dict(kw, augment="flips"))
+    assert len(flat._levels) == 1
+    jflat = JaxSampler(labs, cols, **dict(kw, augment="flips"))
+    for step in (0, 4):
+        a, b = flat.sample_at(step), jflat.sample_at(step)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)

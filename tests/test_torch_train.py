@@ -25,6 +25,8 @@ Tolerances, and why:
 - the optimizer, fed the same gradient trees as optax's chain for 10
   steps: parameters within 1e-6 absolute (they read <= 6e-8: float32
   rounding of the schedule and of Adam's bias correction).
+- codon_fused's training forward against JAX's codon_forward_fused and
+  the port's codon: the float32 bounds above (it reads <= 1e-6).
 - CacStageFunction's gradients are autograd of the plain stage at the same
   inputs: equal bitwise; its forward is the kernels' plain versions, within
   1e-5 of the plain stage in float32.
@@ -180,6 +182,27 @@ def test_loss_and_gradients_match_jax(jax_grads, name):
         num = sum(float(np.sum((got[k] - g) ** 2)) for k, g in want.items())
         den = sum(float(np.sum(g ** 2)) for g in want.values())
         assert (num / den) ** 0.5 <= QAT_TREE_L2
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_codon_fused_gradients_match_jax(name):
+    """codon_fused's training forward (the kernel stage on the halves of
+    T, the kernels' plain versions here) against JAX's value_and_grad of
+    codon_forward_fused, and against the port's codon step: the same net,
+    so the same loss and gradients at these bounds."""
+    params, batch, kw, _, _ = _case(name)
+    fn = jax.jit(jax.value_and_grad(_jax_loss(jax_variant("codon_fused"),
+                                              JaxConfig(**kw), None)))
+    want_loss, want = fn(params, batch)
+    want = _flat(want)
+    loss, got = _port_grads(name, "codon_fused", cac_impl="kernel")
+    codon_loss, codon = _port_grads(name)
+    for ref_loss, ref in ((float(want_loss), want), (codon_loss, codon)):
+        np.testing.assert_allclose(loss, ref_loss, rtol=LOSS_RTOL)
+        assert got.keys() == ref.keys()
+        for path, g in ref.items():
+            err = np.abs(got[path] - g).max()
+            assert err <= GRAD_TOL * max(np.abs(g).max(), 1e-30), path
 
 
 # trained-parameter cases: x4_ship4.npz (its stem widened to 2 channels
@@ -483,15 +506,15 @@ def test_widen_stem_params_preserves_the_function():
 
 
 def test_fused_and_mesh_training_refused():
-    with pytest.raises(NotImplementedError, match="codon_fused"):
-        get_variant("codon_fused").check_trainable()
-    # a mesh trains `codon` (tests/test_torch_parallel_train.py); what it
-    # cannot train raises before any rank is asked: codon_fused, the zoo
-    # (A13c) and a backend without a sharded twin, as in JAX
-    with pytest.raises(NotImplementedError, match="codon_fused"):
-        make_train_step(get_variant("codon_fused"), mesh=object())
-    with pytest.raises(NotImplementedError, match="A13c"):
-        make_train_step(get_variant("zoo:basenet"), mesh=object())
+    """codon_fused and the zoo build a mesh step (they train there:
+    tests/test_torch_parallel_train.py, tests/test_torch_parallel_zoo_
+    train.py); a backend without a sharded twin still raises before any
+    rank is asked, as in JAX."""
+    from codon_tpu_torch.parallel.train import MeshTrainStep
+    get_variant("codon_fused").check_trainable()
+    for name in ("codon_fused", "zoo:basenet"):
+        step, _ = make_train_step(get_variant(name), mesh=object())
+        assert isinstance(step, MeshTrainStep)
     with pytest.raises(NotImplementedError, match="no sharded twin"):
         make_train_step(get_variant("codon"), ops=tq.Int8Ops(),
                         mesh=object())

@@ -230,10 +230,16 @@ def test_argument_errors(data, flags, match):
         _port(["--data-dir", data, "--steps", "1", *SMALL, *flags])
 
 
-def test_codon_fused_and_the_default_device(data):
-    with pytest.raises(NotImplementedError, match="codon_fused"):
-        _port(["--data-dir", data, "--steps", "1", *SMALL, "--variant",
-               "codon_fused"])
+def test_codon_fused_and_the_default_device(tmp_path, data, capsys):
+    """`--variant codon_fused` trains: its first fp32 loss is JAX's."""
+    argv = ["--data-dir", data, "--steps", "1", *SMALL, "--dtype", "fp32",
+            "--ckpt-in", SHIP4, "--variant", "codon_fused"]
+    out = _port([*argv, "--ckpt-out", str(tmp_path / "a.npz")], capsys)
+    assert jax_cli.main(["train", *argv, "--ckpt-out",
+                         str(tmp_path / "b.npz")]) == 0
+    jout = capsys.readouterr().out
+    assert abs(float(STEP1.search(out).group(1))
+               - float(STEP1.search(jout).group(1))) <= 2e-5
     args = tcli._build_argparser().parse_args(["train"])
     assert args.device == "cuda"
 
