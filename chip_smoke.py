@@ -193,7 +193,10 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
      versions; fp32 against the unsharded int8 forward in the flip class
      or within the move of its own input's 1e-6 change, and on a b4 32x24
      frame in the flip class; every rank's quant launches those of its
-     shard), and their
+     shard; fp32 also against the unsharded forward taken a dp block at
+     a time, and the form whose pools gather the image and reduce it in
+     the single-device order against that, in the flip class: ROADMAP
+     C5), and their
      sharded training step at 2x2 (b16 p64, bf16 and fp32: TRAIN_TOLS,
      params within 2 lr, replicas bitwise after 2 steps); `cli eval
      --variant zoo:rmcr_fuse_rmcr_rcan --tile-devices 2 --dp-devices 2
@@ -210,7 +213,15 @@ Run from the root of a checkout, on a machine with one NVIDIA H100. It
      bf16 `cli eval` of the soup; `codon_tpu_torch.sc_cond_probe` on three
      scenes with x4_holdout_sc; a PatchSampler with pyramid=PYRAMID (its
      levels' build ms on the host) and one bf16 step on a batch it draws;
- 38. prints the card's line again, the kernels' JSON line (eight kernels;
+ 38. `codon_tpu_torch.entry`'s forward (1 x 370 x 463, bf16, 5 launches
+     of each CAC kernel); `codon_tpu_torch.tta_shift_probe` with
+     x4_holdout2 over the scale dir (finite rows with the JAX script's
+     JSON keys, 5 launches a TTA4 forward, 5 shifts x 2 batches); and
+     `codon_tpu_torch.ttt_probe --tta` on three scenes, 20 steps each
+     (finite rows with the JAX script's keys, 5 launches a scoring
+     forward and a step, none in a backward), then its second scene
+     alone, whose score before fine-tuning must be the same;
+ 39. prints the card's line again, the kernels' JSON line (eight kernels;
      each CAC and quant kernel's launches_by_path with the mesh paths, by
      rank), then the contract line {"ok": true, "device": {...}} as the
      last line of its output.
@@ -3643,13 +3654,18 @@ ZOO_MESH_FORMS = ((2, 2), (1, 4))
 # that distance. INT8_CPU_BOUNDS is ~3x what trained CODONNet's int8
 # forward moves under such a change; a random-init zoo net can move as
 # far as its int8 forward sits from its float one (one flipped code
-# cascades through the pooled gates), and a shard's pools sum in another
-# order than the whole image's, an ulp apart. On a frame this small
+# cascades through the pooled gates), and a rank runs its dp block's
+# batch, its convs at a shard's shape and its pools in another order
+# than the whole batch's (ROADMAP C5: each of these moves it). Phase 35
+# also runs the form whose pools reduce in the single-device order
+# (`single_order_int8_ops`) and holds it in the flip class against the
+# unsharded forward taken a dp block at a time. On a frame this small
 # (ZOO_INT8_SMALL: b4, image 1 masked in its last 5 rows and 3 columns)
 # sharded and unsharded held in the flip class alone. bf16: also against
 # the fp32 int8 forward in `mesh_bf16_class(vs_fp32=True)`'s class.
 ZOO_INT8_PERTURB = 1e-6
 ZOO_INT8_SMALL = (4, 32, 24)
+
 # the zoo's sharded steps take this many steps before the replicas are
 # compared
 ZOO_MESH_TRAIN_STEPS = 2
@@ -3657,6 +3673,45 @@ ZOO_MESH_TRAIN_STEPS = 2
 # --device-metrics`, held against phase 29's single-device eval in
 # MESH_CLI_PNG's bf16 class
 ZOO_MESH_CLI = "rmcr_fuse_rmcr_rcan"
+
+
+def _whole_image(x, mask, group):
+    """This rank's rows of an (N, h, W, C) shard -> the whole image's
+    (x, mask), exactly: each rank writes its rows into zeros of the
+    image's height, in sp group-rank order, and the sum over the group
+    adds only zeros to them."""
+    import torch.distributed as dist
+    from codon_tpu_torch.parallel.comm import all_sum
+    n, h = x.shape[:2]
+    size, rank = dist.get_world_size(group), dist.get_rank(group)
+
+    def place(t):
+        whole = t.new_zeros((n, h * size) + tuple(t.shape[2:]))
+        whole[:, rank * h:(rank + 1) * h] = t
+        return all_sum(whole, group)
+    return place(x), None if mask is None else place(mask.to(x.dtype))
+
+
+def _pool_whole_image(pool, group, x, mask=None):
+    return pool(*_whole_image(x, mask, group))
+
+
+def single_order_int8_ops(mesh):
+    """ops_factory of a mesh rank: `parallel.quant.Int8ShardedOps` whose
+    global pools gather the whole image first and then reduce it as the
+    unsharded `TorchOps` does, in its order. The production backend
+    all-reduces each shard's partial sums instead, in another order. This
+    form tells whether that order is what sets the sharded dynamic-int8
+    zoo forward apart from the unsharded one (ROADMAP C5: on the CPU it
+    is not, the batch each rank runs is; the tests hold it there)."""
+    import functools
+    from codon_tpu_torch.core.ops import TorchOps
+    from codon_tpu_torch.parallel.quant import Int8ShardedOps
+    ops = Int8ShardedOps(mesh)
+    for name in ("global_avg", "global_max", "global_sum"):
+        setattr(ops, name, functools.partial(
+            _pool_whole_image, getattr(TorchOps, name), ops.group))
+    return ops
 
 
 def zoo_small_frame():
@@ -3807,6 +3862,28 @@ def run_zoo_mesh_phase(kc, kq, data: str, pool):
                      f"{ZOO_INT8_SMALL[1]}x{ZOO_INT8_SMALL[2]} frame vs "
                      f"unsharded: {row['small']}, beyond the flip class "
                      f"{INT8_CPU_BOUNDS}")
+                # C5's witnesses, measured: the unsharded forward taken a dp
+                # block at a time, and the single-order pools' form
+                half = d.shape[0] // 2
+                blocks = torch.cat([vf.forward(
+                    p, d[i:i + half], c[i:i + half], mask=m[i:i + half],
+                    ops=tq.Int8Ops()) for i in (0, half)])
+                so, _, _ = run(f"{label}, single-order pools", 2, 2,
+                               make_tiled_forward(
+                                   vf, 2, 2, pool=pool,
+                                   ops_factory=single_order_int8_ops),
+                               p, d, c, m, timed=False)
+                row["c5"] = {"vs_blocks": mean_max(out, blocks),
+                             "single_order_vs_production": mean_max(so, out),
+                             "single_order_vs_single": mean_max(
+                                 so, single["int8_fp32"]),
+                             "single_order_vs_blocks": mean_max(so, blocks)}
+                need(all(x <= y for x, y in zip(
+                    row["c5"]["single_order_vs_blocks"], INT8_CPU_BOUNDS)),
+                     f"{label}, single-order pools, vs the unsharded "
+                     f"forward a dp block at a time: "
+                     f"{row['c5']['single_order_vs_blocks']}, beyond the "
+                     f"flip class {INT8_CPU_BOUNDS}")
             res["forms"].append(row)
         del p, single
     # sharded training at 2 x 2 against the single-device step
@@ -4014,6 +4091,111 @@ def run_tools_phase(kc, data: str, tmp: str):
          res["pyramid_step"]["counts"] == {k: 5 for k in counts},
          f"the pyramid batch's step: {res['pyramid_step']}")
     need(bool(np.isfinite(host["depth"]).all()), "a non-finite patch")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 38: entry() and the last two model scripts
+# ---------------------------------------------------------------------------
+
+# ttt_probe on the card: this many scenes of the scale dir, steps and
+# warmup steps of fine-tuning each (the script's lr, patch and batch)
+TTT_SCENES, TTT_STEPS, TTT_WARMUP = 3, 20, 5
+# the JAX scripts' own JSON, whose keys the port's must repeat
+SHIFT_JSON = os.path.join(REPO, "checkpoints", "shift_probe_x4_holdout2.json")
+TTT_JSON = os.path.join(REPO, "checkpoints", "ttt_probe_x4_gentle.json")
+
+
+def json_keys(path: str, rows: str) -> tuple:
+    """-> (a JSON file's top-level keys, its first row's)."""
+    with open(path) as f:
+        d = json.load(f)
+    return list(d), list(d[rows][0])
+
+
+def run_probes_phase(kc, data: str, tmp: str):
+    """Phase 38: `entry()`'s bf16 forward (finite, 1 x 370 x 463 x 1, 5
+    launches of each CAC kernel); `tta_shift_probe.main` with x4_holdout2
+    over the scale dir (finite rows, the JAX script's JSON keys, 5 launches
+    each a batched TTA4 forward: 5 shifts x the batches); `ttt_probe.main
+    --tta` over TTT_SCENES scenes (finite rows, the JAX script's keys;
+    launches 5 each a scoring forward and a training step, none in a
+    backward), and its second scene alone, whose rmse_before must equal
+    the first run's (each scene starts from the checkpoint)."""
+    import contextlib
+    import io
+    import torch
+    from codon_tpu_torch import entry as tentry
+    from codon_tpu_torch import tta_shift_probe, ttt_probe
+    from codon_tpu_torch.data.io import discover_pairs
+    res = {}
+    fn, example = tentry.entry()
+    kc.reset_launches()
+    t0 = time.perf_counter()
+    out = fn(*example)
+    torch.cuda.synchronize()
+    res["entry"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                    "shape": tuple(out.shape), "dtype": str(out.dtype),
+                    "finite": bool(torch.isfinite(out).all()),
+                    "counts": kc.launches()}
+    need(res["entry"]["shape"] == tentry.EXAMPLE_SHAPE
+         and res["entry"]["finite"]
+         and res["entry"]["counts"] == {k: 5 for k in res["entry"]["counts"]},
+         f"entry(): {res['entry']}")
+    del fn, example, out
+
+    def run(module, args):
+        kc.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = module.main(args)
+        torch.cuda.synchronize()
+        need(rc == 0, f"{module.__name__} exited {rc}")
+        return kc.launches(), time.perf_counter() - t0
+
+    root = os.path.dirname(data)
+    jpath = os.path.join(tmp, "shift_probe.json")
+    counts, wall = run(tta_shift_probe, ["--data-root", root, "--ckpt",
+                                         CKPT2, "--json", jpath])
+    with open(jpath) as f:
+        shift = json.load(f)
+    want = 5 * len(tta_shift_probe.SHIFTS) * -(-len(SCENES) // 4)
+    need(json_keys(jpath, "per_image") == json_keys(SHIFT_JSON, "per_image")
+         and len(shift["per_image"]) == len(SCENES)
+         and all(math.isfinite(v) for r in shift["per_image"]
+                 for k, v in r.items() if k != "name"),
+         f"tta_shift_probe wrote {shift}")
+    need(counts == {k: want for k in counts},
+         f"tta_shift_probe launched {counts}; expected {want} each")
+    res["shift"] = {"json": shift, "counts": counts, "wall_s": wall}
+    names = discover_pairs(data)[:TTT_SCENES]
+    args = ["--data-root", root, "--ckpt", CKPT2, "--steps",
+            str(TTT_STEPS), "--warmup", str(TTT_WARMUP), "--tta"]
+    jpath = os.path.join(tmp, "ttt_probe.json")
+    counts, wall = run(ttt_probe, args + ["--images", ",".join(names),
+                                          "--json", jpath])
+    with open(jpath) as f:
+        ttt = json.load(f)
+    want = 5 * (TTT_STEPS + 2) * len(names)
+    need(json_keys(jpath, "results") == json_keys(TTT_JSON, "results")
+         and [r["name"] for r in ttt["results"]] == names
+         and all(math.isfinite(v) for r in ttt["results"]
+                 for k, v in r.items() if k != "name"),
+         f"ttt_probe wrote {ttt}")
+    need(counts == {k: want for k in counts},
+         f"ttt_probe launched {counts}; expected {want} each (5 a scoring "
+         f"forward, 5 a step's forward, none in a backward)")
+    res["ttt"] = {"json": ttt, "counts": counts, "wall_s": wall}
+    jpath = os.path.join(tmp, "ttt_alone.json")
+    counts, wall = run(ttt_probe, args + ["--images", names[1],
+                                          "--json", jpath])
+    with open(jpath) as f:
+        alone = json.load(f)["results"][0]
+    res["ttt_alone"] = {"row": alone, "counts": counts, "wall_s": wall}
+    need(alone["rmse_before"] == ttt["results"][1]["rmse_before"],
+         f"ttt_probe: {names[1]} scored {alone['rmse_before']} alone, "
+         f"{ttt['results'][1]['rmse_before']} after {names[0]}'s "
+         f"fine-tuning: a scene did not start from the checkpoint")
     return res
 
 
@@ -4656,6 +4838,21 @@ def main() -> int:
                 cmp = (f"bitwise its plain-quant twin; vs unsharded mean "
                        f"{r['vs_single'][0]:.3e} max {r['vs_single'][1]:.3e}"
                        f"; {cmp}")
+            if "c5" in r:
+                c5 = r["c5"]
+                cmp += (f"; vs the unsharded forward a dp block at a time "
+                        f"mean {c5['vs_blocks'][0]:.3e} max "
+                        f"{c5['vs_blocks'][1]:.3e}; pools in the "
+                        f"single-device order: vs production mean "
+                        f"{c5['single_order_vs_production'][0]:.3e} max "
+                        f"{c5['single_order_vs_production'][1]:.3e}, vs "
+                        f"unsharded mean "
+                        f"{c5['single_order_vs_single'][0]:.3e} max "
+                        f"{c5['single_order_vs_single'][1]:.3e}, vs a dp "
+                        f"block at a time mean "
+                        f"{c5['single_order_vs_blocks'][0]:.3e} max "
+                        f"{c5['single_order_vs_blocks'][1]:.3e} (<= "
+                        f"{INT8_CPU_BOUNDS})")
             say(f"zoo mesh {r['name']} {r['dtype']} {r['form']} b4 384x480 "
                 f"masked: {cmp}; wall {r['ms']:.2f} ms a forward"
                 + (f" (single {r['single_ms']:.2f})" if "single_ms" in r
@@ -4753,7 +4950,38 @@ def main() -> int:
             f"launches {ps['counts']}")
         say(f"tools phase: {time.time() - t0:.1f} s")
 
-    # 38. results
+        # 38. entry() and the last two model scripts
+        t0 = time.time()
+        pr = run_probes_phase(kc, data, tmp)
+        e = pr["entry"]
+        say(f"probes entry: bf16 codon {e['shape']} {e['dtype']}, finite "
+            f"{e['finite']}, first call {e['ms']:.1f} ms; launches "
+            f"{e['counts']}")
+        sh = pr["shift"]
+        say(f"probes tta_shift_probe: x4_holdout2 bf16 TTA4 over "
+            f"{len(SCENES)} scenes b4, {len(sh['json']['per_image'])} rows, "
+            f"mean tta4 RMSE {sh['json']['mean_tta4']}, mean shift5 RMSE "
+            f"{sh['json']['mean_shift5']}; {sh['wall_s']:.1f} s wall; "
+            f"launches {sh['counts']}")
+        for r in sh["json"]["per_image"]:
+            say(f"probes tta_shift_probe row: {json.dumps(r)}")
+        tt = pr["ttt"]
+        say(f"probes ttt_probe: x4_holdout2 bf16, {TTT_STEPS} steps "
+            f"(warmup {TTT_WARMUP}) a scene, --tta, mean RMSE before "
+            f"{tt['json']['mean_before']} after {tt['json']['mean_after']}; "
+            f"{tt['wall_s']:.1f} s wall; launches {tt['counts']}")
+        for r in tt["json"]["results"]:
+            say(f"probes ttt_probe row: {json.dumps(r)}")
+        al = pr["ttt_alone"]
+        say(f"probes ttt_probe alone: {al['row']['name']} rmse_before "
+            f"{al['row']['rmse_before']} (the same in the "
+            f"{len(tt['json']['results'])}-scene run), rmse_after "
+            f"{al['row']['rmse_after']}, ttt_s {al['row']['ttt_s']:.2f}; "
+            f"launches {al['counts']}")
+        say(f"probes phase: {time.time() - t0:.1f} s (the card holds "
+            f"synthetic scenes only: the round-3 negatives need Middlebury)")
+
+    # 39. results
     int8_paths = {"eval_int8": i8_counts,
                   "eval_int8_tta8_device_metrics": i8t_counts,
                   "eval_int8_ensemble2_tta": i8e_counts,
@@ -4773,7 +5001,11 @@ def main() -> int:
                  **{f"train_codon_fused_cli_{k}": v["counts"]
                     for k, v in ft["cli"].items()},
                  "eval_soup": tl["soup_eval"]["counts"],
-                 "train_pyramid_step": tl["pyramid_step"]["counts"]}
+                 "train_pyramid_step": tl["pyramid_step"]["counts"],
+                 "entry": pr["entry"]["counts"],
+                 "tta_shift_probe": pr["shift"]["counts"],
+                 "ttt_probe_tta": pr["ttt"]["counts"],
+                 "ttt_probe_tta_alone": pr["ttt_alone"]["counts"]}
     # the artifacts' launches in the serving process, batches 1 + 2 + 4
     serve_paths = {f"serve_{r['name']}": {k: sum(c[k] for c in
                                                  r["counts"].values())

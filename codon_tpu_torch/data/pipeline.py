@@ -90,6 +90,13 @@ def make_batch(samples: Sequence[Sample], pad_multiple: int = 32,
     )
 
 
+def padded_hw(sizes, pad_multiple: int = 32) -> tuple:
+    """The one padded (H, W) of images of `sizes`, [(h, w), ...]: the
+    largest of each axis, rounded up to pad_multiple."""
+    return (_round_up(max(h for h, _ in sizes), pad_multiple),
+            _round_up(max(w for _, w in sizes), pad_multiple))
+
+
 def png_size(path: str) -> tuple:
     """(h, w) from the PNG IHDR header: 24 bytes, no decode."""
     with open(path, "rb") as f:
@@ -110,8 +117,7 @@ def batched_loader(scale_dir: str, names: Sequence[str], batch_size: int = 1,
     device = resolve_device(device)
     hw = [png_size(os.path.join(scale_dir, "input_depth", n + ".png"))
           for n in names]
-    fixed_hw = (_round_up(max(h for h, _ in hw), pad_multiple),
-                _round_up(max(w for _, w in hw), pad_multiple))
+    fixed_hw = padded_hw(hw, pad_multiple)
     chunks = [list(names[i:i + batch_size])
               for i in range(0, len(names), batch_size)]
     q: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))

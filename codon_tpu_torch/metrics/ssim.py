@@ -4,11 +4,12 @@ scipy.ndimage.gaussian_filter, sigma 1.5, default truncate 4.0 (radius 6),
 boundary mode 'reflect' (the edge sample duplicated), C1 = 0.01^2,
 C2 = 0.03^2, mean over the whole SSIM map.
 
-`ssim_exact` runs on the host with scipy. `ssim_exact_torch` is its batched
-counterpart on tensors, on the device they lie on: a separable 13-tap blur
-whose border is scipy's 'reflect', which is numpy's 'symmetric' and not
-torch's 'reflect' (that one leaves the edge sample out), so the padding is
-built from an index.
+`ssim_exact` runs on the host with scipy, as does `ssim_block`, the
+reference's other SSIM (4x4 blocks). `ssim_exact_torch` is `ssim_exact`'s
+batched counterpart on tensors, on the device they lie on: a separable
+13-tap blur whose border is scipy's 'reflect', which is numpy's
+'symmetric' and not torch's 'reflect' (that one leaves the edge sample
+out), so the padding is built from an index.
 """
 from __future__ import annotations
 
@@ -34,6 +35,31 @@ def ssim_exact(img1, img2, sd: float = 1.5, C1: float = _C1,
     num = (2 * mu1_mu2 + C1) * (2 * sigma12 + C2)
     den = (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2)
     return float(np.mean(num / den))
+
+
+def ssim_block(img1, img2, C1: float = _C1, C2: float = _C2,
+               block: int = 4) -> float:
+    """The reference's 4x4 block SSIM (ssim_2.py:20-33), on the host in
+    float64, the rows and columns past the last whole block left out.
+
+    It keeps the reference's quirk of taking the block statistics as SUMS,
+    not means: that is the shipped behavior."""
+    img1 = np.asarray(img1, np.float64)
+    img2 = np.asarray(img2, np.float64)
+    hb, wb = img1.shape[0] // block, img1.shape[1] // block
+    b1 = img1[: hb * block, : wb * block].reshape(hb, block, wb, block)
+    b1 = b1.transpose(0, 2, 1, 3)
+    b2 = img2[: hb * block, : wb * block].reshape(hb, block, wb, block)
+    b2 = b2.transpose(0, 2, 1, 3)
+    s1 = b1.sum(axis=(-1, -2))
+    s2 = b2.sum(axis=(-1, -2))
+    ss = (b1 * b1).sum(axis=(-1, -2)) + (b2 * b2).sum(axis=(-1, -2))
+    s12 = (b1 * b2).sum(axis=(-1, -2))
+    vari = ss - s1 * s1 - s2 * s2
+    covar = s12 - s1 * s2
+    smap = (2 * s1 * s2 + C1) * (2 * covar + C2) / (
+        (s1 * s1 + s2 * s2 + C1) * (vari + C2))
+    return float(np.mean(smap))
 
 
 def gaussian_kernel_1d(sd: float = 1.5, truncate: float = 4.0,

@@ -70,15 +70,25 @@ class Variant:
 _REGISTRY: Dict[str, tuple] = {}
 
 
+def register(name: str, doc: str = ""):
+    """Decorator: add `builder(dtypes) -> Variant` to the registry under
+    `name`, as `codon_tpu.models.variants.register` does; `get_variant`
+    gives the variant `doc`. Returns the builder."""
+    def deco(builder):
+        _REGISTRY[name] = (builder, doc)
+        return builder
+    return deco
+
+
 def _register(name: str, doc: str, forward_fn=codon_forward,
               **cfg_fields) -> None:
     unread = _DEAD_HEADS + (() if cfg_fields.get("use_cac", True)
                             else ("cac",))
 
+    @register(name, doc)
     def builder(dtypes):
         return Variant(name, CodonConfig(dtypes=dtypes, **cfg_fields), doc,
                        forward_fn, unread=unread)
-    _REGISTRY[name] = (builder, doc)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,18 +123,19 @@ def _register_zoo(zname: str) -> None:
     eval_fn = _ZooForward(zname)
     _TRAIN_FORWARDS[eval_fn] = _ZooForward(zname, grad=True)
 
+    @register(f"zoo:{zname}", entry["doc"])
     def builder(dtypes):
         return Variant(f"zoo:{zname}", CodonConfig(dtypes=dtypes),
                        entry["doc"], eval_fn, _ZooInit(zname),
                        entry["unread"])
-    _REGISTRY[f"zoo:{zname}"] = (builder, entry["doc"])
 
 
 def get_variant(name: str, dtypes: DTypePolicy = FP32) -> Variant:
     if name not in _REGISTRY:
         raise KeyError(f"unknown variant '{name}'; available: "
                        f"{sorted(_REGISTRY)}")
-    return _REGISTRY[name][0](dtypes)
+    builder, doc = _REGISTRY[name]
+    return dataclasses.replace(builder(dtypes), doc=doc)
 
 
 def list_variants():

@@ -16,6 +16,9 @@ import pytest
 from torch_port_common import REPO
 
 FORBIDDEN = ("jax", "jaxlib", "codon_tpu", "cv2", "PIL")
+# the subpackages that re-export their main names, as codon_tpu's do
+SUBPACKAGES = ("checkpoint", "core", "data", "metrics", "models", "train",
+               "utils")
 
 
 def _card_files():
@@ -66,7 +69,12 @@ def test_card_files_exist():
                  "codon_tpu_torch/parallel/train.py",
                  "codon_tpu_torch/data/resize.py",
                  "codon_tpu_torch/soup.py",
-                 "codon_tpu_torch/sc_cond_probe.py"):
+                 "codon_tpu_torch/sc_cond_probe.py",
+                 "codon_tpu_torch/entry.py",
+                 "codon_tpu_torch/tta_shift_probe.py",
+                 "codon_tpu_torch/ttt_probe.py",
+                 *(f"codon_tpu_torch/{pkg}/__init__.py"
+                   for pkg in SUBPACKAGES)):
         assert need in names
     assert all(os.path.exists(p) for p in _card_files())
 
@@ -119,6 +127,18 @@ step, opt = make_train_step(zv, TrainConfig())
 batch = {{"depth": torch.rand(1, 9, 7, 1), "color": torch.rand(1, 9, 7, 1),
           "label": torch.rand(1, 9, 7, 1), "mask": torch.ones(1, 9, 7, 1)}}
 step(zp, opt.init(zp), batch)
+# the subpackages' re-exports, JAX's names under the port's
+from codon_tpu_torch.checkpoint import CheckpointManager, load_npz, load_pth
+from codon_tpu_torch.core import TorchOps, DTypePolicy
+from codon_tpu_torch.data import Batch, Sample, batched_loader
+from codon_tpu_torch.metrics import masked_rmse_torch, ssim_block
+from codon_tpu_torch.models import CodonConfig, codon_forward
+from codon_tpu_torch.train import PatchSampler, make_train_step
+from codon_tpu_torch.utils import Logger, mkdir_if_missing
+from codon_tpu_torch.entry import dryrun_multichip, entry
+from codon_tpu_torch import tta_shift_probe, ttt_probe
+a = torch.rand(5, 6).numpy()
+assert (tta_shift_probe.shift2d(a, 1, 0)[:-1] == a[1:]).all()
 print("ok")
 """
 
@@ -126,6 +146,48 @@ print("ok")
 def test_port_imports_and_runs_without_forbidden_modules():
     res = subprocess.run(
         [sys.executable, "-c", _BLOCKED_RUN.format(forbidden=FORBIDDEN)],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+_NO_BUILD_RUN = r"""
+import ctypes, importlib, importlib.util, os, pkgutil, subprocess, sys
+
+
+def refuse(*args, **kwargs):
+    raise AssertionError("an import started a kernel build or load")
+
+
+# the build module, loaded before its package and with every way to
+# build or load the library made to raise; nvcc runs through subprocess,
+# the library loads through ctypes
+name = "codon_tpu_torch.kernels._build"
+spec = importlib.util.spec_from_file_location(
+    name, os.path.join("codon_tpu_torch", "kernels", "_build.py"))
+_build = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(_build)
+_build.build = _build.load = _build.nvcc = refuse
+sys.modules[name] = _build
+import numpy, scipy.ndimage, torch, torch.distributed, torch.multiprocessing
+subprocess.Popen = subprocess.run = ctypes.CDLL = refuse
+import codon_tpu_torch
+for pkg in {subpackages!r}:
+    importlib.import_module("codon_tpu_torch." + pkg)
+for m in pkgutil.walk_packages(codon_tpu_torch.__path__, "codon_tpu_torch."):
+    importlib.import_module(m.name)
+assert sys.modules[name] is _build
+print("ok")
+"""
+
+
+def test_imports_start_no_kernel_build():
+    """Importing the package, each subpackage (their re-exports) and every
+    module starts no nvcc build and loads no library: with the build, the
+    library load and subprocesses made to raise, every import passes."""
+    res = subprocess.run(
+        [sys.executable, "-c",
+         _NO_BUILD_RUN.format(subpackages=SUBPACKAGES)],
         cwd=REPO, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"

@@ -64,6 +64,20 @@ def test_ssim_exact_matches_jax(seed, hw):
     assert tssim.ssim_exact(a, a) == pytest.approx(1.0)
 
 
+@pytest.mark.parametrize("hw,block", [((32, 24), 4), ((37, 29), 4),
+                                      ((33, 45), 5)])
+def test_ssim_block_matches_jax(hw, block):
+    """Bitwise, on shapes a multiple of the block and not (the rows and
+    columns past the last whole block left out in both), and a block other
+    than the default; C1 / C2 the defaults and given."""
+    rng = np.random.RandomState(sum(hw) + block)
+    a, b = rng.rand(*hw), rng.rand(*hw)
+    assert tssim.ssim_block(a, b, block=block) == \
+        jssim.ssim_block(a, b, block=block)
+    assert tssim.ssim_block(a, b, 1e-3, 2e-3, block) == \
+        jssim.ssim_block(a, b, 1e-3, 2e-3, block)
+
+
 def test_logger_tees_and_restores_stdout(tmp_path, capsys):
     path = tmp_path / "logs" / "run.txt"
     saved = sys.stdout

@@ -231,6 +231,32 @@ def test_registry_holds_the_ported_variants():
         get_variant("zoo:no_such_net")
 
 
+def test_register_adds_a_user_variant():
+    """`register(name, doc)` as JAX's: the decorator returns the builder,
+    `get_variant` builds from it with the dtype policy and fills in the
+    doc, `list_variants` lists it; taken out again afterwards, so the
+    registry's count above holds."""
+    from codon_tpu_torch.models import variants
+
+    def builder(dtypes):
+        return variants.Variant("my_codon", tnet.CodonConfig(
+            width=16, num_mc=2, dtypes=dtypes))
+    try:
+        assert variants.register("my_codon", "a narrow CODONNet")(
+            builder) is builder
+        v = get_variant("my_codon", tparams.BF16)
+        assert v.name == "my_codon" and v.doc == "a narrow CODONNet"
+        assert v.cfg.width == 16 and v.cfg.dtypes == tparams.BF16
+        assert "my_codon" in list_variants()
+        d, c = _inputs(1, 9, 7)
+        p = v.init(torch.Generator().manual_seed(0), device="cpu")
+        out = v.forward(p, to_torch(d), to_torch(c))
+        assert tuple(out.shape) == (1, 9, 7, 1)
+    finally:
+        variants._REGISTRY.pop("my_codon", None)
+    assert "my_codon" not in list_variants()
+
+
 def test_f_variants_share_codon_checkpoints():
     tree = load_npz(os.path.join(CKPT_DIR, "x4_ship4.npz"))
     d, c = _inputs(1, seed=7)

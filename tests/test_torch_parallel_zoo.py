@@ -47,6 +47,7 @@ from codon_tpu.parallel.tiling import make_sharded_forward as jax_sharded
 
 from codon_tpu_torch import quant_ops as tq
 from codon_tpu_torch.checkpoint.native import params_from_numpy
+from codon_tpu_torch.core.ops import conv2d_nhwc
 from codon_tpu_torch.models import attention
 from codon_tpu_torch.models.variants import get_variant, list_variants
 from codon_tpu_torch.parallel import (MeshPool, ShardedOps,
@@ -60,6 +61,8 @@ from torch_port_common import one_torch_thread, to_np, to_torch  # noqa: F401
 ATOL, RTOL = 5e-4, 1e-3
 MEAN_B, MAX_B = 0.05, 0.3
 STITCH_FRAC = 1e-4
+# the mean of INT8_CPU_BOUNDS, the int8 flip class (chip_smoke.py)
+INT8_FLIP_MEAN = 0.01
 NETS = jzoo.list_zoo()
 SUBSET = ["basenet_nlar", "rmcr_fuse_rmcr_rcan", "rmcr_fuse_rmcr_eccv",
           "basenet_cross"]
@@ -235,6 +238,48 @@ def test_zoo_dynamic_int8_sharded_matches_jax(pool, inputs, monkeypatch,
     single = v.forward(tp, s["td"], s["tc"], mask=s["tm"], ops=tq.Int8Ops())
     d = np.abs(got - to_np(single))
     assert d.mean() <= MEAN_B * scale and d.max() <= MAX_B * scale
+
+
+def test_zoo_sharded_int8_gap_is_the_batch_not_the_pools(pool):
+    """What sets zoo:rmcr_fuse_rmcr_rcan's sharded dynamic int8 forward
+    (fp32 float parts) apart from the unsharded one, on a 2 x 64 x 48
+    frame where the two differ. Not the global pools' sum order: with the
+    pools gathered and reduced in the single-device order
+    (`chip_smoke.single_order_int8_ops`; the ranks are other processes,
+    so the form travels as an ops_factory, not as a patch of
+    `ShardedOps`) the 2 x 2 forward is the production one bitwise, and at
+    1 x 2 both are bitwise the unsharded forward. It is the batch: the
+    2 x 2 forward is bitwise the unsharded forward taken one dp block
+    (one image) at a time, and the unsharded forward at batch 2 is not,
+    because the float32 1 -> 64 stem conv rounds image 0 otherwise at
+    batch 2 than at batch 1 (PyTorch's CPU conv); int8 codes then flip
+    and cascade through the pooled gates."""
+    import chip_smoke
+    name = "rmcr_fuse_rmcr_rcan"
+    d, c, m = (to_torch(a) for a in zoo_inputs(0, 2, 64, 48))
+    v = get_variant("zoo:" + name)
+    tp = params_from_numpy(jax_params(name), "cpu")
+    whole = v.forward(tp, d, c, mask=m, ops=tq.Int8Ops())
+    blocks = torch.cat([v.forward(tp, d[i:i + 1], c[i:i + 1],
+                                  mask=m[i:i + 1], ops=tq.Int8Ops())
+                        for i in range(2)])
+    assert not torch.equal(whole, blocks)
+    assert float((whole - blocks).abs().mean()) > INT8_FLIP_MEAN
+
+    def sharded(form, factory):
+        return make_sharded_forward(v, pool.mesh(*form),
+                                    ops_factory=factory)(tp, d, c, m)
+    for form in ((1, 2), (2, 2)):
+        prod = sharded(form, pq.Int8ShardedOps)
+        single_order = sharded(form, chip_smoke.single_order_int8_ops)
+        assert torch.equal(prod, single_order), form
+        assert torch.equal(prod, whole if form == (1, 2) else blocks), form
+    stem = tp["input.weight"]
+    assert stem.shape == (3, 3, 1, 64)
+    x = d * m
+    at2 = conv2d_nhwc(x, stem)
+    at1 = torch.cat([conv2d_nhwc(x[i:i + 1], stem) for i in range(2)])
+    assert not torch.equal(at2, at1)
 
 
 def test_zoo_stitch_matches_jax():
