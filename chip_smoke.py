@@ -231,7 +231,10 @@ Phase 3 holds the CAC kernels at the training path's shape too (16 x 64 x
 their plain versions on the halves of a (N, H, W, 2C) tensor (a tower
 pitch of 2C) at the main, TTA8 and training shapes, and quant_im2col and dequant_epilogue on each group's
 channel and output window at every grouped shape of the b4 codon_fused
-forward, bitwise, each timed beside the contiguous kernel.
+forward, bitwise, each timed beside the contiguous kernel. It holds
+cac_stats to its own bits: two eager calls, and a CUDA graph of one call
+replayed twice, at the main, odd and training shapes, one launch a call;
+and prints each CAC kernel's device time beside its bound as a share of it.
 
 Any failed check raises: the script then exits non-zero and prints no
 result. It also exits non-zero, printing nothing on stdout, without a CUDA
@@ -682,6 +685,7 @@ def time_kernels(kc):
             by = {"shape": r["shape"], "device_ms": graph_ms(r["kern"]),
                   "bound_ms": bound_ms, "bound_by": bound_by,
                   "library_ms": None, "library_device_ms": None}
+            by["share_of_bound"] = bound_ms / by["device_ms"]
             if r["floor"] is not None:
                 by["insn_floor_ms"] = r["floor"]
             if lib is not None:
@@ -1632,6 +1636,41 @@ def check_pitched_kernels(kc):
             del T, inputs2, nxt, want_t
         torch.cuda.empty_cache()
     return checks
+
+
+def check_stats_repeats(kc):
+    """cac_stats' determinism and its one launch a call, bf16 with the
+    mask, at the main, odd and training shapes: two eager calls give the
+    same bits, and a CUDA graph of one call, replayed twice, gives the
+    eager calls' bits after each replay (every launch leaves the kernel's
+    arrival counters at zero). -> [check, ...]."""
+    import torch
+    rows = []
+    for i, (shape, valid) in enumerate((STAGE_CASES[0], STAGE_CASES[1],
+                                        STAGE_CASES[4])):
+        (out, out_c, _, _), mask, *_ = make_stage_inputs(
+            shape, valid, torch.bfloat16, 700 + i)
+        n0 = kc.cac_stats.launches
+        first = kc.cac_stats(out, out_c, mask)
+        again = kc.cac_stats(out, out_c, mask)
+        launches = kc.cac_stats.launches - n0
+        eager = all(torch.equal(a, b) for a, b in zip(first, again))
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            captured = kc.cac_stats(out, out_c, mask)
+        graph = True
+        for _ in range(2):
+            g.replay()
+            torch.cuda.synchronize()
+            graph = graph and all(torch.equal(a, b)
+                                  for a, b in zip(captured, first))
+        rows.append({"shape": list(shape), "eager": eager, "graph": graph,
+                     "launches_2_calls": launches,
+                     "ok": eager and graph and launches == 2})
+        del g, captured, out, out_c, mask
+    torch.cuda.empty_cache()
+    return rows
 
 
 def time_pitched_kernels(kc, timings):
@@ -4257,7 +4296,7 @@ def main() -> int:
             say(f"device {name} {tuple(r['shape'])}: "
                 f"{r['device_ms'] * 1e3:.2f} us a launch ({GRAPH_CALLS} "
                 f"calls in a CUDA graph); bound {r['bound_ms'] * 1e3:.2f} us "
-                f"by {r['bound_by']}"
+                f"by {r['bound_by']} ({r['share_of_bound']:.1%} of it)"
                 + (f", fp32 instruction floor {r['insn_floor_ms'] * 1e3:.2f} "
                    f"us" if "insn_floor_ms" in r else "")
                 + (f"; library {r['library_device_ms'] * 1e3:.2f} us a "
@@ -4280,6 +4319,15 @@ def main() -> int:
            if not r["ok"]]
     need(not bad, f"{len(bad)} pitched kernel checks out of tolerance: "
          f"{bad}")
+    rchecks = check_stats_repeats(kc)
+    for r in rchecks:
+        say(f"check cac_stats repeat bfloat16 {tuple(r['shape'])} "
+            f"mask=True: 2 eager calls bitwise {r['eager']}, a CUDA graph "
+            f"of a call replayed twice bitwise with them {r['graph']}, "
+            f"{r['launches_2_calls']} launches for 2 calls "
+            f"{'ok' if r['ok'] else 'FAIL'}")
+    need(all(r["ok"] for r in rchecks),
+         f"cac_stats repeats: {[r for r in rchecks if not r['ok']]}")
     ptimes = time_pitched_kernels(kc, timings)
     for name, rows in ptimes.items():
         for r in rows:
@@ -5057,6 +5105,7 @@ def main() -> int:
                             "max_abs_err": max(r["max_abs_err"]
                                                for r in pchecks[name])}}
                if name in ptimes else {}),
+            **({"repeats": rchecks} if name == "cac_stats" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in
                                checks[name] + pchecks.get(name, [])),
             "ms": t["ms"], "plain_ms": t["plain_ms"],

@@ -5,7 +5,7 @@ Counterparts of the three Pallas TPU kernels of `codon_tpu.kernels.cac`:
   cac_stats       one pass over both towers -> per-image channel sums and
                   maxes of Fcat = [color | depth] (for the channel-gate MLP)
                   and the channel-pooled max / mean maps (for the spatial
-                  gate)
+                  gate), in one launch; `StatsPlan` mirrors its chunk map
   spatial_logits  the k x k (k = 5) SAME stencil, 2 -> 1, on the pooled maps
   cac_apply       ad = channel gate x sigmoid(logits); both towers gated and
                   the long skip added: 4 reads + 2 writes in one pass
@@ -34,14 +34,77 @@ of the same plain stage.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
 from codon_tpu_torch.kernels import _build
 
 NEG = -3.0e38               # the TPU kernel's "minus infinity" for maxes
-STATS_TILE_ROWS = 4         # rows per block in cac_stats' first pass
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# cac_stats' chunk map (csrc/cac.cu): about STATS_TARGET_CHUNKS chunks a
+# call (one wave of the H100's 264 resident blocks; a constant, so the
+# bits never depend on the card), at most STATS_MAX_CHUNKS an image, and
+# at least STATS_MIN_PIXELS pixels a chunk where the image has them;
+# STATS_THREADS threads a block, and one arrival counter an image,
+# STATS_TICKET_SLOTS of them (images a call at most)
+STATS_TARGET_CHUNKS = 256
+STATS_MAX_CHUNKS = 64
+STATS_MIN_PIXELS = 256
+STATS_THREADS = 256
+STATS_TICKET_SLOTS = 65536
+
+
+@dataclasses.dataclass(frozen=True)
+class StatsPlan:
+    """How `cac_stats`' kernel cuts a call, in the kernel's own arguments:
+    `n` images of `h` x `w` pixels, each cut into chunks of `rows` whole
+    rows, the last chunk of an image shorter. Chunk i is image i //
+    per_image's chunk i % per_image, and its partials go to slot i of the
+    scratch buffer whichever block of the persistent grid computes it: the
+    grid (the card's SMs times the blocks each holds) moves no bit."""
+    n: int
+    h: int
+    w: int
+    rows: int
+
+    @property
+    def per_image(self) -> int:
+        return -(-self.h // self.rows)
+
+    @property
+    def chunks(self) -> int:
+        return self.n * self.per_image
+
+    def chunk(self, i: int) -> tuple:
+        """Chunk i -> (image, its first pixel in the image, pixels), as the
+        kernel finds it."""
+        n, k = divmod(i, self.per_image)
+        row0 = k * self.rows
+        return n, row0 * self.w, min(self.rows, self.h - row0) * self.w
+
+    def reduce_groups(self, c: int) -> tuple:
+        """The order in which the block that finishes an image adds its
+        chunks' partials (4C floats, C float4s a chunk): G = STATS_THREADS
+        // c groups, group g adding the image's chunks g, g + G, ... in
+        turn, then the groups' sums added in order g = 0, 1, ..."""
+        g = STATS_THREADS // c
+        return tuple(tuple(range(q, self.per_image, g)) for q in range(g))
+
+
+def stats_plan(n: int, h: int, w: int,
+               target_chunks: int = STATS_TARGET_CHUNKS,
+               max_chunks: int = STATS_MAX_CHUNKS,
+               min_pixels: int = STATS_MIN_PIXELS) -> StatsPlan:
+    """The chunk map of a `cac_stats` call on n images of h x w, from (n,
+    h, w) alone: an image's sums take the same order, and the same bits,
+    in every call of that shape, and in a batch of any size up to
+    target_chunks // max_chunks (4) images. The wrapper takes the default
+    limits; `perf_stats_probe` tries others."""
+    per_image = min(max_chunks, -(-target_chunks // n))
+    rows = max(-(-min_pixels // w), -(-h // per_image))
+    return StatsPlan(n, h, w, rows)
 
 
 # ---------------------------------------------------------------------------
@@ -184,11 +247,14 @@ def _cac_stats_cuda(out, out_c, mask):
     n, h, w, c = out.shape
     if mask is not None:
         _check_plane(mask, (n, h, w, 1), out.dtype, out.device, "mask")
+    _need(out.numel() > 0, "cac_stats: empty towers {}", tuple(out.shape))
+    _need(n <= STATS_TICKET_SLOTS, "cac_stats: {} images, at most {} a call",
+          n, STATS_TICKET_SLOTS)
+    plan = stats_plan(n, h, w)
     lib = _build.load()
-    tiles = -(-h // STATS_TILE_ROWS)
     dev = out.device
     f32 = torch.float32
-    part = torch.empty((n, tiles, 2, 2 * c), dtype=f32, device=dev)
+    part = torch.empty((plan.chunks, 2, 2 * c), dtype=f32, device=dev)
     ch_sum = torch.empty((n, 1, 2 * c), dtype=f32, device=dev)
     ch_max = torch.empty((n, 1, 2 * c), dtype=f32, device=dev)
     cmax = torch.empty((n, h, w), dtype=out.dtype, device=dev)
@@ -198,8 +264,7 @@ def _cac_stats_cuda(out, out_c, mask):
             _DTYPE_CODES[out.dtype], out.data_ptr(), out_c.data_ptr(),
             None if mask is None else mask.data_ptr(), part.data_ptr(),
             ch_sum.data_ptr(), ch_max.data_ptr(), cmax.data_ptr(),
-            cmean.data_ptr(), n, h, w, c, pitch, STATS_TILE_ROWS,
-            _stream(out))
+            cmean.data_ptr(), n, h, w, c, pitch, plan.rows, _stream(out))
     _build.check(rc, "cac_stats")
     cac_stats.launches += 1
     return ch_sum, ch_max, cmax, cmean

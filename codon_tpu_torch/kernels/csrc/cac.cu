@@ -31,6 +31,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kMaxC = 256;          // 32 threads x 16 B / 2 B
@@ -66,6 +68,14 @@ __device__ __forceinline__ Pack<T> load16(const T* p) {
   return r;
 }
 
+// a load of data read once: evict-first in L1 and L2 (ld.global.cs)
+template <typename T>
+__device__ __forceinline__ Pack<T> load16_stream(const T* p) {
+  Pack<T> r;
+  r.raw = __ldcs(reinterpret_cast<const uint4*>(p));
+  return r;
+}
+
 template <typename T>
 __device__ __forceinline__ void store16(T* p, const Pack<T>& r) {
   *reinterpret_cast<uint4*>(p) = r.raw;
@@ -81,155 +91,408 @@ __device__ __forceinline__ void store16(T* p, const Pack<T>& r) {
 // channels, (N, H, W) in the activation type.
 //
 // Bound: bytes. It reads both towers once, 2 x 94.4 MB at the main-path
-// shape, ~57 us at 3.35 TB/s; the mask and the two maps add ~4.4 MB.
-// Design: the TPU kernel carried the sums across the H grid in a resident
-// output block; Hopper's blocks run in no order, so the reduction is two
-// deterministic passes with no float atomics. Pass 1: one block per
-// (image, tile of rows; the wrapper picks the rows) streams its rows with 16-byte loads,
-// neighbouring threads on neighbouring addresses; each thread keeps its
-// channel slice's sums and maxes in registers, the pooled maps come out of a
-// shuffle over the VPP threads of a pixel, and the block's per-channel
-// partials go to a scratch buffer after a fixed-order shuffle and shared-
-// memory reduction. Pass 2: one block per image adds the tiles' partials in
-// tile order. The same inputs give the same bits on every run.
+// shape, ~57 us at 3.35 TB/s; the mask and the two maps add ~4.4 MB. At the
+// training shape (16, 64, 64, 64) the towers are 16.8 MB, ~5 us: there a
+// launch and the reduction's tail are a large share of the time.
+//
+// Design: one launch a call.
+// - Chunks. Each image is cut into chunks of `rows` whole rows (the last
+//   one shorter); chunk i is image i / per_image's chunk i % per_image. The
+//   wrapper picks `rows` from (N, H, W) alone (kernels/cac.py `stats_plan`,
+//   which mirrors this map): about 256 chunks a call (a constant: one
+//   wave of an H100's 2 x 132 resident blocks), at most 64 an image, and
+//   at least 256 pixels a chunk where the image has them. The b4 eval
+//   gets 64 chunks of 6 rows an image, each TTA8 batch 16 of 24 or 30
+//   rows, the training step 16 of 4 rows: 256 chunks each.
+// - A persistent grid: the blocks the card holds at once (SMs x resident
+//   blocks, asked of the occupancy API once a device), each walking chunks
+//   i = blockIdx.x, + gridDim.x, ... (one chunk a block at the shapes
+//   above). A chunk's per-channel partials go to its own slot i of the
+//   scratch buffer, whichever block computes it.
+// - Bytes in flight. A warp streams a run of 4 x 32 / VPP neighbouring
+//   pixels an iteration: every lane issues its 16-byte load of each tower
+//   for all 4 steps (and one lane in a pixel's group its mask element)
+//   before the first value is used, 8 loads of 16 bytes a thread; the
+//   mask reaches the pixel's other lanes by shuffle. Each thread keeps its
+//   channel slice's sums and maxes in registers; the pooled maps come out
+//   of a shuffle tree over the VPP lanes of a pixel, and the warp writes
+//   its run of each map in one store instruction. Towers larger than the
+//   L2 cache are loaded evict-first (ld.global.cs): they stream through
+//   it, and the cache stays with the slots and the maps.
+// - One pass. At the end of a chunk the block folds its warps' partials
+//   (shuffles, then shared memory sized to C) into the chunk's slot, and
+//   takes a ticket from its image's arrival counter. The block that draws
+//   the image's last ticket adds the image's per_image slots and writes
+//   ch_sum / ch_max: thread (g, v) adds float4 v of the slots g, g + G,
+//   g + 2G, ... in turn (G = 256 / C), then the G sums are added in order
+//   g = 0, 1, ... (kernels/cac.py `StatsPlan.reduce_groups`). This is the
+//   single-pass pattern, a __threadfence() between a block's partials and
+//   its ticket; no float atomics.
+//
+// Bits. Every sum is added in an order fixed by (N, H, W, C) alone: the
+// same inputs give the same bits on every run and on any number of SMs.
+// Up to 4 images a call the order does not depend on N, so an image of
+// the b4 eval gives the same bits alone or in any part of its batch (a
+// data-parallel split changes nothing). A spatial shard of an image is an
+// image of its own rows: its sums are added in its own order, and the
+// mesh adds the shards' sums after that, so a sharded image's sums differ
+// from the whole image's in the last bits (as with the two-pass kernel).
+// The pooled maps and every max do not depend on any order.
+//
+// Tickets. The arrival counters are a __device__ array of this module,
+// one counter an image of the call (so at most kStatsTicketSlots images):
+// the loader zeroes it once on each device, when the module is loaded
+// there, and the block that draws an image's last ticket sets that
+// counter back to zero before the launch ends. So every launch starts
+// from zeros, which makes the counters safe
+// - back to back, and in a CUDA graph captured once and replayed any
+//   number of times: the launches of one stream run one after another,
+//   and each leaves the counters as it found them;
+// - in a torch.export artifact, which calls the same op and so the same
+//   kernel;
+// - in each rank of the mesh, and each device of a process: every process
+//   and every device has its own copy of the array.
+// Two launches that run at the same time on one device, from two streams,
+// would share the counters: every caller of the port launches its CAC
+// kernels on one stream a device.
 // ---------------------------------------------------------------------------
 
 constexpr int kStatsThreads = 256;
 constexpr int kStatsWarps = kStatsThreads / 32;
+constexpr int kStatsUnroll = 4;           // pixel steps a thread loads at once
+constexpr int kStatsMinBlocks = 2;        // blocks an SM: <= 128 registers
+constexpr int kStatsTicketSlots = 65536;  // images a call at most
+constexpr int kMaxDevices = 64;
 
-template <typename T>
-__global__ void __launch_bounds__(kStatsThreads)
-stats_tiles_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                   const T* __restrict__ mask, float* __restrict__ part,
-                   T* __restrict__ cmax, T* __restrict__ cmean,
-                   int H, int W, int C, int pitch, int tile_h, int tiles) {
-  constexpr int V = Pack<T>::N;
-  __shared__ float red[kStatsWarps][4][kMaxC];
+__device__ unsigned int g_stats_tickets[kStatsTicketSlots];
 
-  const int vpp = C / V;
-  const int n = blockIdx.y;
-  const int t = blockIdx.x;
+// VPP = C * sizeof(T) / 16: the lanes that share a pixel; EVICT_FIRST:
+// the towers' loads evict-first in L1 and L2
+template <typename T, int VPP, bool EVICT_FIRST>
+__global__ void __launch_bounds__(kStatsThreads, kStatsMinBlocks)
+cac_stats_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                 const T* __restrict__ mask, float* __restrict__ part,
+                 float* __restrict__ ch_sum, float* __restrict__ ch_max,
+                 T* __restrict__ cmax, T* __restrict__ cmean, int H, int W,
+                 int pitch, int rows, int per_image, int chunks) {
+  constexpr int V = Pack<T>::N;             // channels a lane
+  constexpr int C = VPP * V;
+  constexpr int U = kStatsUnroll;
+  constexpr int PG = 32 / VPP;              // pixels of a warp a step
+  constexpr int RUN = U * PG;               // pixels of a warp an iteration
+  constexpr int STEP = kStatsWarps * RUN;   // pixels of the block an iteration
+  constexpr int Q = (U + VPP - 1) / VPP;    // steps of a lane's mask / maps
+  constexpr int G = kStatsThreads / C;      // groups of the last block's sum
+  extern __shared__ float4 smem[];   // max(warps x 4C floats, 256 float4s)
+  float* const red = reinterpret_cast<float*>(smem);
+  __shared__ bool last;
+
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int s = tid % vpp;                       // channel slice [s*V, s*V+V)
-  const int per_iter = kStatsThreads / vpp;      // pixels per block step
-  const int row0 = t * tile_h;
-  const long long npix = (long long)min(tile_h, H - row0) * W;
-  const long long base = ((long long)n * H + row0) * W;
+  const int s = lane % VPP;                 // channel slice [s*V, s*V+V)
+  const int j = lane / VPP;                 // pixel of the step
+  const int lead = lane - s;                // the pixel's first lane
   const float denom = (float)(2 * C);
 
-  float sx[V], sy[V], mx[V], my[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    sx[i] = 0.f; sy[i] = 0.f; mx[i] = kNeg; my[i] = kNeg;
-  }
+  for (int i = blockIdx.x; i < chunks; i += gridDim.x) {
+    const int n = i / per_image;
+    const int row0 = (i - n * per_image) * rows;
+    const int npix = min(rows, H - row0) * W;
+    const long long base = ((long long)n * H + row0) * W;   // first pixel
+    const T* const xs = x + base * pitch + s * V;
+    const T* const ys = y + base * pitch + s * V;
 
-  // p0 is uniform over the block, so every lane runs every shuffle below
-  for (long long p0 = 0; p0 < npix; p0 += per_iter) {
-    const long long p = p0 + tid / vpp;
-    const bool in = p < npix;
-    float px = 0.f, py = 0.f, pm = kNeg;
-    if (in) {
-      const long long pix = base + p;
-      const Pack<T> a = load16(x + pix * pitch + (long long)s * V);
-      const Pack<T> b = load16(y + pix * pitch + (long long)s * V);
-      const bool valid = mask == nullptr || Cvt<T>::to_f(mask[pix]) > 0.f;
+    float sx[V], sy[V], mx[V], my[V];
 #pragma unroll
-      for (int i = 0; i < V; ++i) {
-        const float av = Cvt<T>::to_f(a.get(i));
-        const float bv = Cvt<T>::to_f(b.get(i));
-        sx[i] += av;
-        sy[i] += bv;
-        if (valid) {
-          mx[i] = fmaxf(mx[i], av);
-          my[i] = fmaxf(my[i], bv);
+    for (int e = 0; e < V; ++e) {
+      sx[e] = 0.f; sy[e] = 0.f; mx[e] = kNeg; my[e] = kNeg;
+    }
+
+    // p0: the warp's first pixel; warp-uniform, so every lane of a warp
+    // runs every shuffle below
+    for (int p0 = warp * RUN; p0 < npix; p0 += STEP) {
+      Pack<T> a[U], b[U];
+      float mq[Q];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int p = p0 + u * PG + j;
+        a[u].raw = make_uint4(0u, 0u, 0u, 0u);
+        b[u].raw = make_uint4(0u, 0u, 0u, 0u);
+        if (p < npix) {
+          a[u] = EVICT_FIRST ? load16_stream(xs + (long long)p * pitch)
+                             : load16(xs + (long long)p * pitch);
+          b[u] = EVICT_FIRST ? load16_stream(ys + (long long)p * pitch)
+                             : load16(ys + (long long)p * pitch);
         }
-        px += av;
-        py += bv;
-        pm = fmaxf(pm, fmaxf(av, bv));
+      }
+      if (mask != nullptr) {
+        // lane s holds the mask of steps s, s + VPP, ...
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          const int u = s + q * VPP;
+          const int p = p0 + u * PG + j;
+          mq[q] = u < U && p < npix ? Cvt<T>::to_f(mask[base + p]) : 0.f;
+        }
+      }
+      float ps[U], pm[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        bool valid = p0 + u * PG + j < npix;
+        if (mask != nullptr)
+          valid = __shfl_sync(kFull, mq[u / VPP], lead + u % VPP) > 0.f;
+        float px = 0.f, py = 0.f, pmax = kNeg;
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float av = Cvt<T>::to_f(a[u].get(e));
+          const float bv = Cvt<T>::to_f(b[u].get(e));
+          sx[e] += av;
+          sy[e] += bv;
+          if (valid) {
+            mx[e] = fmaxf(mx[e], av);
+            my[e] = fmaxf(my[e], bv);
+          }
+          px += av;
+          py += bv;
+          pmax = fmaxf(pmax, fmaxf(av, bv));
+        }
+        ps[u] = px + py;
+        pm[u] = pmax;
+      }
+#pragma unroll
+      for (int off = VPP / 2; off > 0; off >>= 1) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          ps[u] += __shfl_xor_sync(kFull, ps[u], off);
+          pm[u] = fmaxf(pm[u], __shfl_xor_sync(kFull, pm[u], off));
+        }
+      }
+      // lane s writes steps s, s + VPP, ... of its pixel: the warp's run
+      // of each map in one store instruction where VPP >= U
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int u = s + q * VPP;
+        const int p = p0 + u * PG + j;
+        if (u < U && p < npix) {
+          float vs = ps[0], vm = pm[0];
+#pragma unroll
+          for (int t = 1; t < U; ++t) {
+            if (u == t) {
+              vs = ps[t];
+              vm = pm[t];
+            }
+          }
+          cmax[base + p] = Cvt<T>::from_f(vm);
+          cmean[base + p] = Cvt<T>::from_f(vs / denom);
+        }
       }
     }
-    for (int off = vpp >> 1; off > 0; off >>= 1) {
-      px += __shfl_xor_sync(kFull, px, off);
-      py += __shfl_xor_sync(kFull, py, off);
-      pm = fmaxf(pm, __shfl_xor_sync(kFull, pm, off));
-    }
-    if (in && s == 0) {
-      const long long pix = base + p;
-      cmax[pix] = Cvt<T>::from_f(pm);
-      cmean[pix] = Cvt<T>::from_f((px + py) / denom);
-    }
-  }
 
-  // lanes that share a channel slice: fold the warp onto lanes 0..vpp-1
+    // lanes that share a channel slice: fold the warp onto lanes 0..VPP-1
 #pragma unroll
-  for (int i = 0; i < V; ++i) {
-    for (int off = vpp; off < 32; off <<= 1) {
-      sx[i] += __shfl_xor_sync(kFull, sx[i], off);
-      sy[i] += __shfl_xor_sync(kFull, sy[i], off);
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], off));
-      my[i] = fmaxf(my[i], __shfl_xor_sync(kFull, my[i], off));
-    }
-  }
-  if (lane < vpp) {
+    for (int off = VPP; off < 32; off <<= 1) {
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const int c = s * V + i;
-      red[warp][0][c] = sy[i];   // Fcat is color first
-      red[warp][1][c] = sx[i];
-      red[warp][2][c] = my[i];
-      red[warp][3][c] = mx[i];
+      for (int e = 0; e < V; ++e) {
+        sx[e] += __shfl_xor_sync(kFull, sx[e], off);
+        sy[e] += __shfl_xor_sync(kFull, sy[e], off);
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(kFull, mx[e], off));
+        my[e] = fmaxf(my[e], __shfl_xor_sync(kFull, my[e], off));
+      }
     }
-  }
-  __syncthreads();
-  const int c2 = 2 * C;
-  float* out = part + ((long long)n * tiles + t) * 2 * c2;
-  for (int cc = tid; cc < c2; cc += kStatsThreads) {
-    const int q = cc < C ? 0 : 1;
-    const int c = cc < C ? cc : cc - C;
-    float sum = 0.f, mxv = kNeg;
-    for (int w = 0; w < kStatsWarps; ++w) {
-      sum += red[w][q][c];
-      mxv = fmaxf(mxv, red[w][q + 2][c]);
+    if (lane < VPP) {
+      // the warp's 4C values: Fcat's sums (color first), then its maxes
+      float4* const w4 = reinterpret_cast<float4*>(red + warp * 4 * C + s * V);
+#pragma unroll
+      for (int e = 0; e < V; e += 4) {
+        w4[e / 4] = make_float4(sy[e], sy[e + 1], sy[e + 2], sy[e + 3]);
+        w4[(C + e) / 4] = make_float4(sx[e], sx[e + 1], sx[e + 2], sx[e + 3]);
+        w4[(2 * C + e) / 4] = make_float4(my[e], my[e + 1], my[e + 2],
+                                          my[e + 3]);
+        w4[(3 * C + e) / 4] = make_float4(mx[e], mx[e + 1], mx[e + 2],
+                                          mx[e + 3]);
+      }
     }
-    out[cc] = sum;
-    out[c2 + cc] = mxv;
+    __syncthreads();
+    float* const slot = part + (long long)i * 4 * C;
+    for (int v = tid; v < 4 * C; v += kStatsThreads) {
+      float acc = v < 2 * C ? 0.f : kNeg;
+#pragma unroll
+      for (int w = 0; w < kStatsWarps; ++w) {
+        const float r = red[w * 4 * C + v];
+        acc = v < 2 * C ? acc + r : fmaxf(acc, r);
+      }
+      slot[v] = acc;
+    }
+    // the block's slot is visible to every block before its ticket is
+    // (the barrier, then one thread's fence: the pattern of the
+    // cooperative-groups grid barrier), and the last ticket's holder sees
+    // every other block's slot after its own fence and the barrier
+    __syncthreads();
+    if (tid == 0) {
+      __threadfence();
+      last = atomicAdd(&g_stats_tickets[n], 1u) == (unsigned)per_image - 1u;
+      if (last) {
+        g_stats_tickets[n] = 0u;    // for the next launch
+        __threadfence();
+      }
+    }
+    __syncthreads();
+    if (last) {
+      // every slot of image n is written: add them in the fixed order
+      const float4* const slots =
+          reinterpret_cast<const float4*>(part) + (long long)n * per_image * C;
+      const int v = tid % C, g = tid / C;
+      const bool sum = v < C / 2;           // float4s 0..C/2-1: the sums
+      float4 acc = sum ? make_float4(0.f, 0.f, 0.f, 0.f)
+                       : make_float4(kNeg, kNeg, kNeg, kNeg);
+#pragma unroll 16
+      for (int k = g; k < per_image; k += G) {
+        const float4 r = __ldcg(slots + (long long)k * C + v);
+        if (sum) {
+          acc.x += r.x; acc.y += r.y; acc.z += r.z; acc.w += r.w;
+        } else {
+          acc.x = fmaxf(acc.x, r.x); acc.y = fmaxf(acc.y, r.y);
+          acc.z = fmaxf(acc.z, r.z); acc.w = fmaxf(acc.w, r.w);
+        }
+      }
+      smem[g * C + v] = acc;
+      __syncthreads();
+      if (tid < C) {
+        float4 t = smem[v];
+        for (int q = 1; q < G; ++q) {
+          const float4 r = smem[q * C + v];
+          if (sum) {
+            t.x += r.x; t.y += r.y; t.z += r.z; t.w += r.w;
+          } else {
+            t.x = fmaxf(t.x, r.x); t.y = fmaxf(t.y, r.y);
+            t.z = fmaxf(t.z, r.z); t.w = fmaxf(t.w, r.w);
+          }
+        }
+        float4* const dst = sum
+            ? reinterpret_cast<float4*>(ch_sum) + (long long)n * (C / 2) + v
+            : reinterpret_cast<float4*>(ch_max) + (long long)n * (C / 2) +
+                  (v - C / 2);
+        *dst = t;
+      }
+      // shared memory is the next chunk's again
+      __syncthreads();
+    }
   }
 }
 
-__global__ void stats_finish_kernel(const float* __restrict__ part,
-                                    float* __restrict__ ch_sum,
-                                    float* __restrict__ ch_max,
-                                    int tiles, int c2) {
-  const int n = blockIdx.x;
-  for (int cc = threadIdx.x; cc < c2; cc += blockDim.x) {
-    float sum = 0.f, mxv = kNeg;
-    for (int t = 0; t < tiles; ++t) {
-      const float* p = part + ((long long)n * tiles + t) * 2 * c2;
-      sum += p[cc];
-      mxv = fmaxf(mxv, p[c2 + cc]);
-    }
-    ch_sum[(long long)n * c2 + cc] = sum;
-    ch_max[(long long)n * c2 + cc] = mxv;
+// Blocks of cac_stats_kernel<T, VPP, EF> the current device holds at
+// once: its SMs times the blocks an SM holds, found once a device.
+template <typename T, int VPP, bool EF>
+cudaError_t stats_grid(size_t smem, int* grid) {
+  static std::atomic<int> grids[kMaxDevices];
+  int dev, sms, per_sm;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && (*grid = grids[dev].load()) > 0)
+    return cudaSuccess;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, cac_stats_kernel<T, VPP, EF>, kStatsThreads, smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // reported here: clear it for the next launch
+    return e;
   }
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *grid = per_sm * sms;
+  if (dev < kMaxDevices) grids[dev].store(*grid);
+  return cudaSuccess;
+}
+
+// The current device's L2 cache, in bytes, found once a device.
+cudaError_t device_l2(long long* bytes) {
+  static std::atomic<int> l2s[kMaxDevices];
+  int dev, l2;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && (l2 = l2s[dev].load()) > 0) {
+    *bytes = l2;
+    return cudaSuccess;
+  }
+  e = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return e;
+  }
+  *bytes = l2;
+  if (dev < kMaxDevices) l2s[dev].store(l2);
+  return cudaSuccess;
+}
+
+template <typename T, int VPP, bool EF>
+cudaError_t launch_stats_ef(const void* x, const void* y, const void* mask,
+                            void* part, void* ch_sum, void* ch_max,
+                            void* cmax, void* cmean, int n, int h, int w,
+                            int pitch, int rows, size_t smem,
+                            cudaStream_t st) {
+  const int per_image = (h + rows - 1) / rows;
+  const int chunks = n * per_image;
+  int grid;
+  cudaError_t e = stats_grid<T, VPP, EF>(smem, &grid);
+  if (e != cudaSuccess) return e;
+  cac_stats_kernel<T, VPP, EF><<<grid < chunks ? grid : chunks,
+                                 kStatsThreads, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y),
+      static_cast<const T*>(mask), static_cast<float*>(part),
+      static_cast<float*>(ch_sum), static_cast<float*>(ch_max),
+      static_cast<T*>(cmax), static_cast<T*>(cmean), h, w, pitch, rows,
+      per_image, chunks);
+  return cudaGetLastError();
+}
+
+template <typename T, int VPP>
+cudaError_t launch_stats_vpp(const void* x, const void* y, const void* mask,
+                             void* part, void* ch_sum, void* ch_max,
+                             void* cmax, void* cmean, int n, int h, int w,
+                             int c, int pitch, int rows, cudaStream_t st) {
+  constexpr int C = VPP * Pack<T>::N;
+  if (c != C) return cudaErrorInvalidValue;
+  const size_t smem = kStatsWarps * 4 * C * sizeof(float) >
+                              kStatsThreads * sizeof(float4)
+                          ? kStatsWarps * 4 * C * sizeof(float)
+                          : kStatsThreads * sizeof(float4);
+  long long l2;
+  cudaError_t e = device_l2(&l2);
+  if (e != cudaSuccess) return e;
+  // towers larger than L2 stream through it: evict-first loads leave the
+  // cache to the slots and maps (perf_stats_probe on an H100: the b4 eval
+  // 70.7 -> 67.5 us); smaller ones may stay for the stage's next read
+  const bool evict_first = 2LL * n * h * w * C * (long long)sizeof(T) > l2;
+  return evict_first
+             ? launch_stats_ef<T, VPP, true>(x, y, mask, part, ch_sum, ch_max,
+                                             cmax, cmean, n, h, w, pitch,
+                                             rows, smem, st)
+             : launch_stats_ef<T, VPP, false>(x, y, mask, part, ch_sum,
+                                              ch_max, cmax, cmean, n, h, w,
+                                              pitch, rows, smem, st);
 }
 
 template <typename T>
 cudaError_t launch_stats(const void* x, const void* y, const void* mask,
                          void* part, void* ch_sum, void* ch_max, void* cmax,
                          void* cmean, int n, int h, int w, int c, int pitch,
-                         int tile_h, cudaStream_t st) {
-  const int tiles = (h + tile_h - 1) / tile_h;
-  stats_tiles_kernel<T><<<dim3(tiles, n), kStatsThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(y),
-      static_cast<const T*>(mask), static_cast<float*>(part),
-      static_cast<T*>(cmax), static_cast<T*>(cmean), h, w, c, pitch, tile_h,
-      tiles);
-  stats_finish_kernel<<<n, 128, 0, st>>>(
-      static_cast<const float*>(part), static_cast<float*>(ch_sum),
-      static_cast<float*>(ch_max), tiles, 2 * c);
-  return cudaGetLastError();
+                         int rows, cudaStream_t st) {
+  if (n < 1 || h < 1 || w < 1 || rows < 1 || n > kStatsTicketSlots)
+    return cudaErrorInvalidValue;
+#define CODON_STATS_VPP(VPP)                                              \
+  case VPP:                                                               \
+    return launch_stats_vpp<T, VPP>(x, y, mask, part, ch_sum, ch_max,     \
+                                    cmax, cmean, n, h, w, c, pitch, rows, st);
+  switch (c * (int)sizeof(T) / 16) {
+    CODON_STATS_VPP(1)
+    CODON_STATS_VPP(2)
+    CODON_STATS_VPP(4)
+    CODON_STATS_VPP(8)
+    CODON_STATS_VPP(16)
+    CODON_STATS_VPP(32)
+    default: return cudaErrorInvalidValue;
+  }
+#undef CODON_STATS_VPP
 }
 
 // ---------------------------------------------------------------------------
@@ -538,13 +801,14 @@ cudaError_t launch_apply(const void* out, const void* outc, const void* in,
 
 extern "C" {
 
-// x, y: towers of pitch `pitch` (>= c), the others contiguous
+// x, y: towers of pitch `pitch` (>= c), the others contiguous; part:
+// n * ceil(h / rows) slots of 4c floats, one a chunk of `rows` rows
 int codon_cac_stats(int dtype, const void* x, const void* y, const void* mask,
                     void* part, void* ch_sum, void* ch_max, void* cmax,
                     void* cmean, int n, int h, int w, int c, int pitch,
-                    int tile_h, void* stream) {
+                    int rows, void* stream) {
   CODON_DISPATCH(dtype, launch_stats, x, y, mask, part, ch_sum, ch_max, cmax,
-                 cmean, n, h, w, c, pitch, tile_h,
+                 cmean, n, h, w, c, pitch, rows,
                  static_cast<cudaStream_t>(stream));
 }
 

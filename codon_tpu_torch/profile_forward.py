@@ -38,8 +38,7 @@ import sys
 import numpy as np
 import torch
 
-CAC_KERNELS = {"stats_tiles_kernel": "cac_stats",
-               "stats_finish_kernel": "cac_stats",
+CAC_KERNELS = {"cac_stats_kernel": "cac_stats",
                "spatial_logits_kernel": "spatial_logits",
                "cac_apply_kernel": "cac_apply"}
 QUANT_KERNELS = {"quantize_kernel": "quant:im2col_quantize",

@@ -647,6 +647,122 @@ def test_cuda_pitched_stats_matches_plain(dtype, masked, shape, valid):
         assert torch.equal(a, b)
 
 
+# ---------------------------------------------------------------------------
+# cac_stats' one-launch kernel: its own bits on repeats (eagerly, and in a
+# CUDA graph replayed twice: the arrival counters reset by every launch),
+# an image's bits in a batch of up to 4, and the plain version's numbers
+# at the training shape, at odd and tiny frames and at every channel width
+# the wrapper takes, on contiguous and pitched towers, with and without a
+# mask; one launch a call
+# ---------------------------------------------------------------------------
+
+def _stats_towers(shape, dtype, pitched, seed):
+    """Two towers (N,H,W,C), zero outside a valid region at the top left,
+    as separate tensors or as the halves of one (N,H,W,2C) tensor, and
+    the mask of that region."""
+    n, h, w, c = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mask = torch.zeros((n, h, w, 1), device="cuda")
+    mask[:, :max(1, h - h // 3), :max(1, w - w // 4)] = 1.0
+    if pitched:
+        t = (torch.randn((n, h, w, 2 * c), generator=g, device="cuda")
+             * mask).to(dtype)
+        towers = (t[..., :c], t[..., c:])
+    else:
+        towers = tuple((torch.randn(shape, generator=g, device="cuda")
+                        * mask).to(dtype) for _ in range(2))
+    return towers, mask.to(dtype)
+
+
+def _stats_matches_plain(towers, m):
+    n, h, w, _ = towers[0].shape
+    dtype = towers[0].dtype
+    n0 = tcac.cac_stats.launches
+    got = tcac.cac_stats(*towers, m)
+    assert tcac.cac_stats.launches == n0 + 1
+    want = tcac.cac_stats_plain(*towers, m)
+    # the sums and maxes are float32 over the same inputs in every dtype;
+    # the sums compared as means, as the stage uses them
+    _close(got[0] / (h * w), want[0] / (h * w), *CUDA_TOLS[torch.float32])
+    _close(got[1], want[1], *CUDA_TOLS[torch.float32])
+    for g, w_ in zip(got[2:], want[2:]):
+        _close(g, w_, *CUDA_TOLS[dtype])
+    return got
+
+
+@pytest.mark.parametrize("shape", [(16, 64, 64, 64), (2, 37, 29, 64),
+                                   (4, 384, 480, 64)],
+                         ids=["train", "odd", "main"])
+@needs_cuda
+def test_cuda_stats_repeats_bitwise_eagerly_and_in_a_graph(shape):
+    towers, m = _stats_towers(shape, torch.bfloat16, False, 140)
+    first = tcac.cac_stats(*towers, m)
+    n0 = tcac.cac_stats.launches
+    again = tcac.cac_stats(*towers, m)
+    assert tcac.cac_stats.launches == n0 + 1
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tcac.cac_stats(*towers, m)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(captured, first):
+            assert torch.equal(a, b)
+    # and eagerly again after the replays
+    for a, b in zip(tcac.cac_stats(*towers, m), first):
+        assert torch.equal(a, b)
+
+
+@needs_cuda
+def test_cuda_stats_image_keeps_its_bits_in_a_batch_of_up_to_4():
+    """Up to 4 images a call the chunk map depends on (H, W) alone: an
+    image's sums take the same order alone and in the batch, so a
+    data-parallel split of the b4 eval moves no bit."""
+    towers, m = _stats_towers((4, 96, 80, 64), torch.bfloat16, False, 141)
+    whole = tcac.cac_stats(*towers, m)
+    for i in range(4):
+        alone = tcac.cac_stats(*(t[i:i + 1] for t in towers), m[i:i + 1])
+        for a, b in zip(alone, whole):
+            assert torch.equal(a[0], b[i])
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("shape", [
+    (16, 64, 64, 64), (2, 37, 29, 64), (3, 1, 1, 64), (2, 3, 5, 64),
+    (1, 300, 2, 64), (5, 130, 7, 64)],
+    ids=["train", "37x29", "1x1", "below-a-chunk", "tall", "ragged"])
+@needs_cuda
+def test_cuda_stats_matches_plain_at_ragged_shapes(shape, masked):
+    towers, m = _stats_towers(shape, torch.bfloat16, False, 142)
+    _stats_matches_plain(towers, m if masked else None)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("pitched", [False, True], ids=["flat", "pitched"])
+@pytest.mark.parametrize("dtype,c", [
+    *((torch.bfloat16, c) for c in (16, 32, 64, 128, 256)),
+    *((torch.float32, c) for c in (16, 32, 64, 128))],
+    ids=lambda v: {torch.bfloat16: "bf16", torch.float32: "fp32"}.get(
+        v, str(v)))
+@needs_cuda
+def test_cuda_stats_matches_plain_at_every_width(dtype, c, pitched, masked):
+    towers, m = _stats_towers((3, 70, 45, c), dtype, pitched, 143 + c)
+    _stats_matches_plain(towers, m if masked else None)
+
+
+@needs_cuda
+def test_cuda_stats_refuses_more_images_than_counters():
+    x = torch.zeros((tcac.STATS_TICKET_SLOTS + 1, 1, 1, 8),
+                    dtype=torch.bfloat16, device="cuda")
+    n0 = tcac.cac_stats.launches
+    with pytest.raises(ValueError, match="images"):
+        tcac.cac_stats(x, x, None)
+    assert tcac.cac_stats.launches == n0
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("into", ["merged", "towers"])
 @needs_cuda
